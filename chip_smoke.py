@@ -1,0 +1,514 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one NVIDIA GPU and hold each CUDA
+kernel to its plain PyTorch version.
+
+    python3 chip_smoke.py            # from the root of a checkout
+
+Phases, each of which raises on failure (nothing is caught):
+
+  card       the GPU's name and power limit, as nvidia-smi prints them;
+  build      nvcc builds the four kernels from csrc/, in parallel;
+  edges      each kernel against its plain version on the edge cases of the
+             JAX package's oracle harness (tile sizes +-1, n = 0, q = 0,
+             all-equal, duplicate-heavy and INF64 keys, segments that cross
+             CTA tiles), equal under each kernel's contract;
+  golden     the kernel path on a small chunked stream with a ragged tail
+             reproduces the JAX reference's final-state sha256 and estimate
+             (src/repro_torch/golden/stream_small.json, written by JAX);
+  full       the paper's bulk_s1m_r2m shape (r = 2^21 estimators, batch
+             s = 2^20, chunk K = 4) through TriangleCountEngine + run_stream on
+             a 9,088,608-edge planted-triangle stream: two chunks, then a
+             ragged batch of 700,000 edges on the per-batch path. It checks
+             that every kernel was launched, that the state is bit-identical
+             to the plain path (scan ingest, torch.searchsorted), that a
+             snapshot after chunk 1 restored into a fresh engine finishes
+             with the same state, and that rel.err <= 5%;
+  kernels    each kernel and its plain version at the main path's full-size
+             shapes: equal, and timed with CUDA events beside its bound and,
+             where one PyTorch call computes the same function, that call;
+             then where one chunk's device time goes (randomness, structure
+             build, fused loop) and the ragged tail batch's time;
+  cli        python -m repro_torch.launch.stream prints the golden CLI line.
+
+Tolerance: exact. Every kernel computes integer or bit-defined results, so
+each is held to its plain version with max |diff| = 0 (the tile sort under
+its split contract: keys bit-equal, payloads equal as a multiset per tile).
+
+The line before last is {"kernels": [...]}; the last is
+{"ok": true, "device": {...}}. Exits nonzero without a CUDA device or without
+the repository around it.
+"""
+from __future__ import annotations
+
+import itertools
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+# H100 SXM peaks (NVIDIA data sheet), at the full 700 W power limit
+HBM_BYTES_PER_S = 3.35e12
+# no integer row in the data sheet: the 32-bit rate outside the tensor cores
+# (67 T/s for float32) is taken for 32-bit integer operations, and an int64
+# comparison or add counts as two of them
+INT32_OPS_PER_S = 67e12
+FULL = {"r": 2**21, "s": 2**20, "K": 4, "edges": 9_088_608, "triangles": 262_144,
+        "vertices": 2**22, "seed": 7, "groups": 9}
+KERNELS = {  # name -> (source, TPU kernel it replaces)
+    "fused_ingest": ("src/repro_torch/csrc/fused_ingest.cu",
+                     "src/repro/kernels/fused_ingest.py:67"),
+    "bitonic_sort_tiles": ("src/repro_torch/csrc/bitonic.cu",
+                           "src/repro/kernels/bitonic.py:45"),
+    "segscan": ("src/repro_torch/csrc/segscan.cu", "src/repro/kernels/segscan.py:41"),
+    "multisearch_counts": ("src/repro_torch/csrc/multisearch.cu",
+                           "src/repro/kernels/multisearch.py:28"),
+}
+INF64 = np.iinfo(np.int64).max
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Mean device milliseconds of ``fn()`` over ``reps`` launches, by CUDA
+    events around the whole run, after ``warmup`` untimed calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def max_abs(a, b) -> float:
+    import torch
+
+    if a.numel() == 0:
+        return 0.0
+    return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
+
+
+def require_equal(name: str, got, want) -> None:
+    import torch
+
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"{name}: kernel and plain version disagree "
+                             f"(max |diff| {max_abs(got, want) if got.shape == want.shape else 'shape'})")
+
+
+# ---------------------------------------------------------------------------
+# the split contract of the tile sort
+# ---------------------------------------------------------------------------
+def check_tile_sort(name, keys, vals, tile, got, want) -> float:
+    """Keys bit-equal; (key, payload) pairs equal as a multiset per tile over
+    keys below the INT64 max sentinel. Returns the max |diff| of the keys."""
+    import torch
+
+    gk, gv = got
+    wk, wv = want
+    require_equal(f"{name} keys", gk, wk)
+    n = keys.numel()
+    tid = torch.arange(n, device=keys.device) // tile
+    real = gk != INF64
+
+    def canon(k, v):
+        k, v, t = k[real], v[real], tid[real]
+        o = torch.argsort(v, stable=True)
+        o = o[torch.argsort(k[o], stable=True)]
+        o = o[torch.argsort(t[o], stable=True)]
+        return k[o], v[o]
+
+    ck, cv = canon(gk, gv)
+    ek, ev = canon(wk, wv)
+    require_equal(f"{name} pairs", cv, ev)
+    return max_abs(gk, wk)
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+def phase_card() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    line = smi.splitlines()[0]
+    print(line, flush=True)
+    name, limit = (x.strip() for x in line.split(",", 1))
+    emit({"phase": "card", "name": name, "power_limit": limit})
+    return line
+
+
+def phase_build() -> None:
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    seconds = _build.build()
+    logs = {}
+    for name in _build.SOURCES:
+        log = _build.library_path(name).with_suffix(".log")
+        logs[name] = [ln.strip() for ln in log.read_text().splitlines()
+                      if "registers" in ln or "spill" in ln] if log.exists() else []
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "per_source_s": seconds, "ptxas": logs})
+
+
+def key_families(n: int, seed: int) -> dict:
+    """The adversarial key families of the JAX package's oracle harness."""
+    rng = np.random.default_rng(seed)
+    fams = {
+        "random": rng.integers(0, max(4 * n, 4), n),
+        "duplicate_heavy": rng.integers(0, max(n // 8, 2), n),
+        "all_equal": np.full(n, 7),
+        "inf_sentinels": np.where(rng.random(n) < 0.25, INF64, rng.integers(0, max(n, 2), n)),
+    }
+    return {k: v.astype(np.int64) for k, v in fams.items()}
+
+
+def phase_edges(dev) -> None:
+    import torch
+
+    from repro_torch import rng as trng
+    from repro_torch.core.bulk import bulk_update_chunk
+    from repro_torch.core.state import init_state
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bitonic import bitonic_sort_tiles
+    from repro_torch.kernels.multisearch import multisearch_counts
+    from repro_torch.kernels.segscan import segscan
+
+    cases = 0
+    for n, q in itertools.product((0, 1, 255, 256, 257, 4097), (0, 1, 33, 257)):
+        for fam, keys in key_families(n, n + q).items():
+            g = np.random.default_rng(q)
+            qs = np.concatenate([g.integers(-5, max(4 * n, 8), max(q - 2, 0)),
+                                 np.array([INF64] * min(q, 1) + [0] * min(max(q - 1, 0), 1))])[:q]
+            k = torch.from_numpy(np.sort(keys)).to(dev)
+            qt = torch.from_numpy(qs.astype(np.int64)).to(dev)
+            lt, le = multisearch_counts(k, qt)
+            elt, ele = ref.multisearch_counts_ref(k, qt)
+            require_equal(f"multisearch lt n={n} q={q} {fam}", lt, elt)
+            require_equal(f"multisearch le n={n} q={q} {fam}", le, ele)
+            cases += 1
+    for n in (0, 1, 4095, 4096, 4097, 3 * 4096 + 5, 100_003):
+        g = np.random.default_rng(n)
+        v = torch.from_numpy(g.integers(-5, 7, n).astype(np.int32)).to(dev)
+        for fam, f in {"random": g.random(n) < 0.2, "cross_tile": g.random(n) < 0.0005,
+                       "no_flags": np.zeros(n, bool), "all_flags": np.ones(n, bool)}.items():
+            ft = torch.from_numpy(f).to(dev)
+            require_equal(f"segscan n={n} {fam}", segscan(v, ft), ref.segscan_ref(v, ft))
+            cases += 1
+    for tile, sizes in ((2, (5,)), (16, (15, 16, 17)), (4096, (4095, 4096, 4097)),
+                        (8192, (8191, 8192, 8193, 3 * 8192)), (32768, (2 * 32768 + 1,))):
+        for n in sizes:
+            for fam, keys in key_families(n, tile + n).items():
+                kt = torch.from_numpy(keys).to(dev)
+                vt = torch.arange(n, dtype=torch.int32, device=dev)
+                check_tile_sort(f"bitonic tile={tile} n={n} {fam}", kt, vt, tile,
+                                bitonic_sort_tiles(kt, vt, tile),
+                                ref.bitonic_sort_tiles_ref(kt, vt, tile))
+                cases += 1
+    for r, s, K, seed in ((33, 6, 3, 4), (1000, 64, 4, 5), (4099, 300, 2, 6)):
+        g = np.random.default_rng(seed)
+        Ws = g.integers(0, max(3 * s // 2, 4), size=(K, s, 2)).astype(np.int32)
+        Ws[0, 0] = [1, 1]  # self-loop
+        Ws[1, 1] = Ws[1, 0]  # duplicate edge in one batch
+        nv = g.integers(1, s + 1, size=K).astype(np.int32)
+        nv[0] = s
+        Wt, nvt = torch.from_numpy(Ws).to(dev), torch.from_numpy(nv).to(dev)
+        key = trng.PRNGKey(seed, dev)
+        want = ref.fused_ingest_ref(init_state(r, dev), Wt, nvt, key, 3)
+        got = bulk_update_chunk(init_state(r, dev), Wt, nvt, key, 3, backend="kernel")
+        for f in want._fields:
+            require_equal(f"fused chunk r={r} s={s} K={K} {f}", getattr(got, f), getattr(want, f))
+        cases += 1
+    torch.cuda.synchronize()
+    emit({"phase": "edges", "cases": cases, "ok": True})
+
+
+def phase_golden(dev) -> None:
+    from repro_torch.data.graph_stream import batches, planted_triangle_stream
+    from repro_torch.engine import EngineConfig, TriangleCountEngine, run_stream
+    from repro_torch.interop import state_sha256
+
+    gold = json.loads((ROOT / "src/repro_torch/golden/stream_small.json").read_text())
+    st, en = gold["stream"], gold["engine"]
+    edges, _ = planted_triangle_stream(st["triangles"], st["noise_edges"], st["vertices"],
+                                       seed=st["seed"])
+    eng = TriangleCountEngine(EngineConfig(
+        r=en["r"], batch_size=en["batch_size"], chunk_size=en["chunk_size"],
+        groups=en["groups"], seeds=(en["seed"],), device=dev.type, ingest="kernel",
+        multisearch="kernel"))
+    run_stream(eng, batches(edges, en["batch_size"]))
+    digest = state_sha256(eng.snapshot())
+    est = float(eng.estimate()[0])
+    if digest != gold["state_sha256"] or eng.step != gold["step"]:
+        raise AssertionError(f"golden: state sha256 {digest} != JAX {gold['state_sha256']}")
+    if abs(est - gold["estimate"]) > 1e-12 * abs(gold["estimate"]):
+        raise AssertionError(f"golden: estimate {est!r} != JAX {gold['estimate']!r}")
+    emit({"phase": "golden", "state_sha256": digest, "estimate": est, "ok": True})
+
+
+def planted_full(seed: int):
+    """262,144 disjoint triangles plus distinct bipartite noise edges on 2^22
+    vertices, shuffled (vectorised; the same construction as
+    graph_stream.planted_triangle_stream, so tau = 262,144 exactly)."""
+    g = np.random.default_rng(seed)
+    T, V, m = FULL["triangles"], FULL["vertices"], FULL["edges"]
+    a = np.arange(T, dtype=np.int64) * 3
+    tri = np.stack([np.stack([a, a + 1], 1), np.stack([a, a + 2], 1),
+                    np.stack([a + 1, a + 2], 1)], 1).reshape(-1, 2)
+    base = 3 * T
+    half = (V - base) // 2
+    need = m - len(tri)
+    codes = np.unique(g.integers(0, half * half, size=int(need * 1.05)))
+    codes = codes[g.permutation(len(codes))[:need]]
+    if len(codes) != need:
+        raise RuntimeError("too few distinct noise edges drawn")
+    noise = np.stack([base + codes // half, base + half + codes % half], 1)
+    edges = np.concatenate([tri, noise]).astype(np.int32)
+    return edges[g.permutation(len(edges))], T
+
+
+def phase_full(dev) -> dict:
+    import torch
+
+    from repro_torch.data.graph_stream import batches
+    from repro_torch.engine import EngineConfig, TriangleCountEngine, run_stream
+    from repro_torch.interop import state_sha256
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    edges, tau = planted_full(FULL["seed"])
+    s, K = FULL["s"], FULL["K"]
+
+    def engine(ingest, multisearch):
+        return TriangleCountEngine(EngineConfig(
+            r=FULL["r"], batch_size=s, chunk_size=K, groups=FULL["groups"],
+            seeds=(FULL["seed"],), device=dev.type, ingest=ingest, multisearch=multisearch))
+
+    eng = engine("kernel", "kernel")
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    rep = run_stream(eng, batches(edges, s))
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"full: kernels never launched on the main path: {missing}")
+    digest = state_sha256(eng.snapshot())
+    est = float(eng.estimate()[0])
+    rel = abs(est - tau) / tau
+    # Reckoning for the 5% limit: one estimator's coarse estimate has
+    # Var <= m * D * tau, with D bounding chi for a tracked triangle, so the
+    # mean of r has relative sigma sqrt(m * D / (r * tau)). With D ~ 15 (the
+    # noise's degrees) that is sqrt(9.09e6 * 15 / (2^21 * 262144)) ~ 1.6%;
+    # for these disjoint triangles chi <= 2, about 0.6%. The median of 8
+    # group means widens it a little; 5% is about three of the looser sigmas.
+    if rel > 0.05:
+        raise AssertionError(f"full: rel.err {rel:.4%} > 5%")
+
+    plain = engine("scan", "eager")
+    t0 = time.perf_counter()
+    run_stream(plain, batches(edges, s))
+    plain_s = time.perf_counter() - t0
+    if state_sha256(plain.snapshot()) != digest:
+        raise AssertionError("full: kernel path state differs from the plain path")
+
+    first = engine("kernel", "kernel")
+    run_stream(first, itertools.islice(batches(edges, s), K))
+    resumed = engine("kernel", "kernel")
+    resumed.restore(first.snapshot())
+    run_stream(resumed, itertools.islice(batches(edges, s), K, None))
+    if state_sha256(resumed.snapshot()) != digest:
+        raise AssertionError("full: snapshot after chunk 1 + restore diverged")
+
+    emit({"phase": "full", "r": FULL["r"], "s": s, "K": K, "m": int(len(edges)),
+          "tau": tau, "estimate": est, "rel_err": rel, "edges_per_s": rep.edges_per_s,
+          "seconds": rep.seconds, "plain_path_seconds": plain_s,
+          "peak_device_bytes": peak, "launches": launches, "state_sha256": digest,
+          "plain_path_equal": True, "restore_equal": True})
+    return {"launches": launches, "state": eng.state, "edges": edges}
+
+
+def phase_kernels(dev, full: dict) -> list:
+    import torch
+
+    from repro_torch import rng as trng
+    from repro_torch.core.bulk import (
+        _chunk_randomness,
+        _closing_query,
+        _q1_queries,
+        bulk_update_all,
+        bulk_update_chunk,
+        chunk_inputs,
+    )
+    from repro_torch.core.rank import INF64 as KEY_PAD
+    from repro_torch.core.rank import _next_pow2, rank_all_chunk
+    from repro_torch.kernels.bitonic import bitonic_sort_tiles, bitonic_sort_tiles_plain
+    from repro_torch.kernels.fused_ingest import fused_ingest, fused_ingest_plain
+    from repro_torch.kernels.multisearch import multisearch_counts, multisearch_counts_plain
+    from repro_torch.kernels.segscan import segscan, segscan_plain
+    from repro_torch.primitives.segscan import segment_starts
+    from repro_torch.primitives.sort import pack2
+
+    s, K, r = FULL["s"], FULL["K"], FULL["r"]
+    state = full["state"]
+    Ws = torch.from_numpy(full["edges"][: K * s].reshape(K, s, 2)).to(dev)
+    nv = torch.full((K,), s, dtype=torch.int32, device=dev)
+    key = trng.PRNGKey(FULL["seed"], dev)
+    args, _ = chunk_inputs(state, Ws, nv, key, 0, use_kernels=False)
+    key_desc, key_rank, src, dst, pos, ekey, epos = args[:7]
+    rows = []
+
+    def row(name, err, ms, plain_ms, lib_ms, nb, ops):
+        b_ms, b_by = bound(nb, ops)
+        src_path, replaces = KERNELS[name]
+        rows.append({"name": name, "route": "cuda", "source": src_path, "replaces": replaces,
+                     "launches": full["launches"][name], "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": lib_ms})
+
+    # fused_ingest: one K-batch chunk of the full-size stream over the final state
+    st = (state.f1, state.chi, state.f2, state.has_f3)
+    got = fused_ingest(*st, *args)
+    want = fused_ingest_plain(*st, *args)
+    for f, a, b in zip(("f1", "chi", "f2", "has_f3"), got, want):
+        require_equal(f"fused_ingest {f}", a, b)
+    err = max(max_abs(a, b) for a, b in zip(got, want))
+    depth = 6 * math.ceil(math.log2(2 * s + 1))
+    row("fused_ingest", err, time_ms(lambda: fused_ingest(*st, *args), reps=5),
+        time_ms(lambda: fused_ingest_plain(*st, *args), reps=2, warmup=1), None,
+        nbytes(*st, *args) + nbytes(*st), 2 * r * K * (depth + 40))
+
+    # bitonic_sort_tiles: the arc tiles of that chunk, as rank_all_chunk pads them
+    tile = _next_pow2(2 * s)
+    kd = pack2(torch.cat([Ws[:, :, 0], Ws[:, :, 1]], 1),
+               (s - 1) - torch.arange(s, device=dev, dtype=torch.int32).repeat(2)[None, :])
+    kd_p = torch.full((K, tile), KEY_PAD, dtype=torch.int64, device=dev)
+    kd_p[:, : 2 * s] = kd
+    arc_p = torch.zeros((K, tile), dtype=torch.int32, device=dev)
+    arc_p[:, : 2 * s] = torch.arange(2 * s, dtype=torch.int32, device=dev)
+    kf, af = kd_p.view(-1), arc_p.view(-1)
+    err = check_tile_sort("bitonic full", kf, af, tile, bitonic_sort_tiles(kf, af, tile),
+                          bitonic_sort_tiles_plain(kf, af, tile))
+    n = kf.numel()
+    stages = int(math.log2(tile))
+    row("bitonic_sort_tiles", err, time_ms(lambda: bitonic_sort_tiles(kf, af, tile)),
+        time_ms(lambda: bitonic_sort_tiles_plain(kf, af, tile)),
+        time_ms(lambda: torch.sort(kd_p, dim=1)),
+        2 * nbytes(kf, af), 2 * (n // 2) * stages * (stages + 1) // 2)
+
+    # segscan: Lemma 4.3 ranks over the chunk's sorted arcs
+    ones = torch.ones(K * 2 * s, dtype=torch.int32, device=dev)
+    flags = segment_starts(src).reshape(-1).contiguous()
+    got, want = segscan(ones, flags), segscan_plain(ones, flags)
+    require_equal("segscan full", got, want)
+    row("segscan", max_abs(got, want), time_ms(lambda: segscan(ones, flags)),
+        time_ms(lambda: segscan_plain(ones, flags)), None,
+        nbytes(ones, flags) + nbytes(ones), 2 * ones.numel())
+
+    # multisearch_counts: the per-batch path's three searches (Q1 over
+    # key_desc, Q2 over key_rank, step 3 over ekey); timed at Q1, the largest
+    f1b = torch.full((r,), -1, dtype=torch.int32, device=dev)
+    kd0, kr0, ek0 = key_desc[0].contiguous(), key_rank[0].contiguous(), ekey[0].contiguous()
+    q1 = _q1_queries(s, state.f1[:, 0], state.f1[:, 1], f1b)
+    q2 = pack2(state.f1[:, 0], torch.clamp(state.chi, min=0))
+    q3 = _closing_query(state.f1, state.f2)[1]
+    err = 0.0
+    for name, keys, q in (("q1", kd0, q1), ("q2", kr0, q2), ("step3", ek0, q3)):
+        got, want = multisearch_counts(keys, q), multisearch_counts_plain(keys, q)
+        for side, a, b in zip(("lt", "le"), got, want):
+            require_equal(f"multisearch {name} {side}", a, b)
+            err = max(err, max_abs(a, b))
+    depth = math.ceil(math.log2(kd0.numel() + 1))
+    row("multisearch_counts", err, time_ms(lambda: multisearch_counts(kd0, q1)),
+        time_ms(lambda: multisearch_counts_plain(kd0, q1)),
+        time_ms(lambda: torch.searchsorted(kd0, q1)),
+        nbytes(kd0, q1) + 2 * 4 * q1.numel(), 2 * 2 * q1.numel() * depth)
+    emit({"phase": "kernels", "ok": True})
+
+    # where one chunk's device time goes on the kernel route, and the ragged
+    # tail batch on the per-batch route
+    steps = torch.arange(K, dtype=torch.int64, device=dev)
+    tail = full["edges"][2 * K * s:]
+    W_tail = torch.zeros((s, 2), dtype=torch.int32, device=dev)
+    W_tail[: len(tail)] = torch.from_numpy(tail).to(dev)
+    emit({"phase": "breakdown",
+          "chunk_ms": time_ms(lambda: bulk_update_chunk(state, Ws, nv, key, 0, backend="kernel"), reps=3),
+          "randomness_ms": time_ms(lambda: _chunk_randomness(state, nv, key, steps), reps=3),
+          "structures_ms": time_ms(lambda: rank_all_chunk(Ws, nv, use_kernels=True), reps=3),
+          "chunk_inputs_ms": time_ms(lambda: chunk_inputs(state, Ws, nv, key, 0, use_kernels=True), reps=3),
+          "fused_ingest_ms": rows[0]["ms"],
+          "tail_batch_ms": time_ms(lambda: bulk_update_all(state, W_tail, len(tail), key, "kernel"), reps=3)})
+    return rows
+
+
+def phase_cli() -> None:
+    gold = json.loads((ROOT / "src/repro_torch/golden/stream_small.json").read_text())
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.stream", *gold["cli"]["args"]],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600, check=True).stdout
+    lines = out.splitlines()
+    for prefix in ("stream: m=", "processed ", "estimate: "):
+        if not any(ln.startswith(prefix) for ln in lines):
+            raise AssertionError(f"cli: no {prefix!r} line in:\n{out}")
+    est_line = next(ln for ln in lines if ln.startswith("estimate: "))
+    if est_line != gold["cli"]["estimate_line"]:
+        raise AssertionError(f"cli: {est_line!r} != JAX CLI {gold['cli']['estimate_line']!r}")
+    emit({"phase": "cli", "estimate_line": est_line, "ok": True})
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    phase_card()
+    phase_build()
+    phase_edges(dev)
+    phase_golden(dev)
+    full = phase_full(dev)
+    rows = phase_kernels(dev, full)
+    phase_cli()
+    emit({"phase": "done", "seconds": time.perf_counter() - t0})
+    emit({"kernels": rows})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

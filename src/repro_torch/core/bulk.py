@@ -1,0 +1,291 @@
+"""bulkUpdateAll (paper Section 4): fold a batch of edges into all r
+estimators while keeping the neighborhood sampling invariant
+(``repro.core.bulk``, insertion path).
+
+  Step 1  level-1 reservoir over E ∪ W
+  Step 2  rankAll(W), then the Q1 rank/degree multisearch and the Q2
+          (src, rank) decode of the new level-2 edge
+  Step 3  the closing-edge multisearch with the pos > pos(f2) arrival rule
+
+Randomness is counter-based: batch i of a stream draws from
+``fold_in(key, step0 + i)``, so ``bulk_update_chunk`` over K batches is
+bit-identical to K ``bulk_update_all`` calls on every backend, and both are
+bit-identical to the JAX reference for the same inputs.
+
+``n_valid`` may be a Python int or an integer tensor; ``search`` names the
+multisearch backend (``repro_torch.primitives.search``).
+"""
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+from repro_torch import rng
+from repro_torch.core.rank import RankStructure, rank_all, rank_all_chunk
+from repro_torch.core.state import EstimatorState
+from repro_torch.primitives.ingest import randint_from_bits, resolve_ingest_backend
+from repro_torch.primitives.search import multisearch_bounds, multisearch_lt
+from repro_torch.primitives.sort import pack2
+
+Tensor = torch.Tensor
+IntLike = Union[int, Tensor]
+
+
+def _canon(a: Tensor, b: Tensor) -> Tensor:
+    return torch.stack([torch.minimum(a, b), torch.maximum(a, b)], dim=-1)
+
+
+def step1_level1(state: EstimatorState, W: Tensor, n_valid: IntLike, key: Tensor):
+    """Reservoir-sample level-1 edges over E ∪ W (paper Section 4.2): draw
+    t ~ U[0, m + n_valid); t >= m selects W[t - m]."""
+    r = state.r
+    m = state.m_seen
+    total = m + n_valid
+    t = rng.randint64(key, torch.clamp(total, min=1), (r,))
+    replace = (t >= m) & (total > 0)
+    idx = torch.minimum(
+        torch.clamp(t - m, min=0), torch.clamp(torch.as_tensor(n_valid) - 1, min=0)
+    ).to(torch.int32)
+    f1 = torch.where(replace[:, None], W[idx.long()], state.f1)
+    chi = torch.where(replace, torch.zeros_like(state.chi), state.chi)
+    f2 = torch.where(replace[:, None], torch.full_like(state.f2, -1), state.f2)
+    has_f3 = state.has_f3 & ~replace
+    f1_bpos = torch.where(replace, idx, torch.full_like(idx, -1))
+    return f1, chi, f2, has_f3, f1_bpos
+
+
+def _q1_queries(s: int, u: Tensor, v: Tensor, f1_bpos: Tensor) -> Tensor:
+    """The four fused Q1 roles (own arc / segment end for u and v, segment
+    starts for u and v) as one (4r,) query vector over the key_desc of a
+    batch of s edges."""
+    zero = torch.zeros_like(f1_bpos)
+    return torch.cat([
+        pack2(u, (s - 1) - f1_bpos),
+        pack2(v, (s - 1) - f1_bpos),
+        pack2(u, zero),
+        pack2(v, zero),
+    ])
+
+
+def rank_queries(R: RankStructure, u: Tensor, v: Tensor, f1_bpos: Tensor,
+                 search: str = "auto"):
+    """rank(endpoint -> other) for both f1 endpoints (paper Observation 4.4)
+    in one multisearch over ``R.key_desc``: a fresh f1 reads its own arc's
+    offset in the segment, an old one (f1_bpos = -1) the segment width."""
+    lt, le = multisearch_bounds(R.key_desc, _q1_queries(R.s, u, v, f1_bpos), search)
+    r = u.shape[0]
+    hi_u, hi_v, lo_u, lo_v = lt[:r], lt[r:2 * r], lt[2 * r:3 * r], lt[3 * r:]
+    w_u = hi_u - lo_u
+    w_v = hi_v - lo_v
+    fresh = f1_bpos >= 0
+    miss_u = fresh & ~(le[:r] > hi_u)
+    miss_v = fresh & ~(le[r:2 * r] > hi_v)
+    zero = torch.zeros_like(w_u)
+    return torch.where(miss_u, zero, w_u), torch.where(miss_v, zero, w_v)
+
+
+def _p_new(chi_plus: Tensor, chi_new: Tensor) -> Tensor:
+    # float32 division, IEEE-rounded on both CPU and CUDA
+    return chi_plus.to(torch.float32) / torch.clamp(chi_new.to(torch.float32), min=1.0)
+
+
+def step2_level2(f1, chi_minus, f2, has_f3, f1_bpos, R: RankStructure, key,
+                 search: str = "auto"):
+    """Update level-2 edges and chi (paper Section 4.3)."""
+    u, v = f1[:, 0], f1[:, 1]
+    have_f1 = u >= 0
+    ld, rd = rank_queries(R, u, v, f1_bpos, search)
+    zero = torch.zeros_like(ld)
+    ld = torch.where(have_f1, ld, zero)
+    rd = torch.where(have_f1, rd, zero)
+    chi_plus = ld + rd
+    chi_new = chi_minus + chi_plus
+
+    k = rng.split(key)
+    r = f1.shape[0]
+    coin = rng.uniform(k[0], (r,))
+    take_new = have_f1 & (chi_plus > 0) & (coin < _p_new(chi_plus, chi_new))
+
+    phi = rng.randint32(k[1], torch.clamp(chi_plus, min=1), (r,))
+    t_src = torch.where(phi < ld, u, v)
+    t_rank = torch.where(phi < ld, phi, phi - ld)
+    lt, le = multisearch_bounds(R.key_rank, pack2(t_src, t_rank), search)
+    found = le > lt
+    j = torch.clamp(lt, max=R.key_rank.shape[0] - 1).long()
+    cand = _canon(R.src[j], R.dst[j])
+    take_new = take_new & found
+
+    f2_new = torch.where(take_new[:, None], cand, f2)
+    f2_bpos = torch.where(take_new, R.pos[j], torch.full_like(lt, -1))
+    return f2_new, chi_new, has_f3 & ~take_new, f2_bpos
+
+
+def _closing_query(f1: Tensor, f2: Tensor):
+    u, v = f1[:, 0], f1[:, 1]
+    a, b = f2[:, 0], f2[:, 1]
+    have_wedge = (u >= 0) & (a >= 0)
+    o1 = torch.where((u == a) | (u == b), v, u)
+    o2 = torch.where((a == u) | (a == v), b, a)
+    return have_wedge, pack2(torch.minimum(o1, o2), torch.maximum(o1, o2))
+
+
+def step3_closing(f1, f2, has_f3, f2_bpos, R: RankStructure, search: str = "auto"):
+    """Detect closing edges in W (paper Section 4.4): the edge joining the
+    wedge's two free endpoints, arriving after f2. On duplicate edges the
+    last copy's position is read (the structure's sort is stable)."""
+    have_wedge, q = _closing_query(f1, f2)
+    lt, le = multisearch_bounds(R.ekey, q, search)
+    p3 = R.epos[torch.clamp(le - 1, min=0).long()]
+    return has_f3 | (have_wedge & (le > lt) & (p3 > f2_bpos))
+
+
+def bulk_update_all(state: EstimatorState, W: Tensor, n_valid: IntLike,
+                    key: Tensor, search: str = "auto") -> EstimatorState:
+    """Process one batch of edges into all estimators (paper Theorem 4.1).
+    W: (s, 2) int32 on the state's device; the first n_valid rows are real."""
+    k = rng.split(key)
+    f1, chi_m, f2, has_f3, f1_bpos = step1_level1(state, W, n_valid, k[0])
+    R = rank_all(W, n_valid)
+    f2, chi, has_f3, f2_bpos = step2_level2(f1, chi_m, f2, has_f3, f1_bpos, R, k[1], search)
+    has_f3 = step3_closing(f1, f2, has_f3, f2_bpos, R, search)
+    return EstimatorState(f1, chi, f2, has_f3, state.m_seen + n_valid)
+
+
+def _bulk_update_chunk_scan(state: EstimatorState, Ws: Tensor, n_valids: Tensor,
+                            key: Tensor, step0: int = 0,
+                            search: str = "auto") -> EstimatorState:
+    """The reference chunk pipeline: K sequential ``bulk_update_all`` calls."""
+    for i in range(Ws.shape[0]):
+        state = bulk_update_all(state, Ws[i], n_valids[i],
+                                rng.fold_in(key, step0 + i), search)
+    return state
+
+
+def _chunk_randomness(state: EstimatorState, n_valids: Tensor, key: Tensor, steps: Tensor):
+    """Every random draw of a K-batch chunk at once, batched over K keys.
+    Returns (m_before (K,), totals (K,), t (K, r), coin (K, r), phi_hi (K, r),
+    phi_lo (K, r)); the phi words are int32 tensors carrying uint32 bits."""
+    r = state.r
+    nv64 = n_valids.to(torch.int64)
+    m_before = state.m_seen + torch.cumsum(nv64, 0) - nv64
+    totals = m_before + nv64
+
+    bkeys = rng.fold_in(key, steps)  # (K, 2)
+    k12 = rng.split(bkeys)  # bulk_update_all's (k1, k2)
+    kcp = rng.split(k12[:, 1])  # step 2's (k_coin, k_phi)
+    kbits = rng.split(kcp[:, 1])  # randint's internal split
+
+    t = rng.randint64(k12[:, 0], torch.clamp(totals, min=1)[:, None], (r,))
+    coin = rng.uniform(kcp[:, 0], (r,))
+    phi_hi = rng.bits32(kbits[:, 0], (r,)).to(torch.int32)
+    phi_lo = rng.bits32(kbits[:, 1], (r,)).to(torch.int32)
+    return m_before, totals, t, coin, phi_hi, phi_lo
+
+
+def _step2_fused(f1, chi_minus, f2, has_f3, f1_bpos, R: RankStructure,
+                 coin, phi_hi, phi_lo):
+    """``step2_level2`` on hoisted coin/phi randomness with lt-only plain
+    searches; value-identical to the reference on every lane (a fresh f1's
+    own arc is always present, and the Q2 exact-match test is one key
+    comparison at the lt point)."""
+    u, v = f1[:, 0], f1[:, 1]
+    have_f1 = u >= 0
+    lt4 = multisearch_lt(R.key_desc, _q1_queries(R.s, u, v, f1_bpos), "eager")
+    r = u.shape[0]
+    zero = torch.zeros_like(lt4[:r])
+    ld = torch.where(have_f1, lt4[:r] - lt4[2 * r:3 * r], zero)
+    rd = torch.where(have_f1, lt4[r:2 * r] - lt4[3 * r:], zero)
+    chi_plus = ld + rd
+    chi_new = chi_minus + chi_plus
+    take_new = have_f1 & (chi_plus > 0) & (coin < _p_new(chi_plus, chi_new))
+
+    phi = randint_from_bits(phi_hi, phi_lo, torch.clamp(chi_plus, min=1))
+    t_src = torch.where(phi < ld, u, v)
+    t_rank = torch.where(phi < ld, phi, phi - ld)
+    qk = pack2(t_src, t_rank)
+    n2 = R.key_rank.shape[0]
+    lt = multisearch_lt(R.key_rank, qk, "eager")
+    j = torch.clamp(lt, max=n2 - 1).long()
+    found = (lt < n2) & (R.key_rank[j] == qk)
+    take_new = take_new & found
+
+    f2_new = torch.where(take_new[:, None], _canon(R.src[j], R.dst[j]), f2)
+    f2_bpos = torch.where(take_new, R.pos[j], torch.full_like(lt, -1))
+    return f2_new, chi_new, has_f3 & ~take_new, f2_bpos
+
+
+def fused_batch(f1, chi, f2, has_f3, R: RankStructure, replace, w_sel, f1_bpos,
+                coin, phi_hi, phi_lo):
+    """One batch of the fused pipeline's per-batch residue in plain PyTorch:
+    the precomputed step-1 selects, ``_step2_fused`` and step 3."""
+    f1 = torch.where(replace[:, None], w_sel, f1)
+    chi_m = torch.where(replace, torch.zeros_like(chi), chi)
+    f2 = torch.where(replace[:, None], torch.full_like(f2, -1), f2)
+    has_f3 = has_f3 & ~replace
+    f2, chi, has_f3, f2_bpos = _step2_fused(
+        f1, chi_m, f2, has_f3, f1_bpos, R, coin, phi_hi, phi_lo)
+    has_f3 = step3_closing(f1, f2, has_f3, f2_bpos, R, "eager")
+    return f1, chi, f2, has_f3
+
+
+def chunk_inputs(state: EstimatorState, Ws: Tensor, n_valids: Tensor, key: Tensor,
+                 step0: int, *, use_kernels: bool):
+    """Everything the fused batch loop reads, hoisted out of it: the
+    arguments of ``fused_ingest`` after the state (the K rank structures'
+    fields, then replace, w_sel, f1_bpos, coin, phi_hi, phi_lo) and the
+    chunk's final m_seen. ``use_kernels`` builds the structures with the
+    tile-sort and segscan kernels."""
+    K = Ws.shape[0]
+    dev = Ws.device
+    n_valids = n_valids.to(device=dev, dtype=torch.int32)
+    steps = step0 + torch.arange(K, dtype=torch.int64, device=dev)
+    m_before, totals, t, coin, phi_hi, phi_lo = _chunk_randomness(state, n_valids, key, steps)
+
+    # the reservoir decisions are deterministic in (t, m_seen trajectory),
+    # and m_seen's trajectory is a cumsum of the batch sizes
+    nv64 = n_valids.to(torch.int64)
+    replace = (t >= m_before[:, None]) & (totals[:, None] > 0)
+    idx = torch.minimum(
+        torch.clamp(t - m_before[:, None], min=0), torch.clamp(nv64 - 1, min=0)[:, None]
+    )
+    w_sel = torch.gather(Ws, 1, idx[:, :, None].expand(K, state.r, 2))
+    f1_bpos = torch.where(replace, idx, torch.full_like(idx, -1)).to(torch.int32)
+
+    R = rank_all_chunk(Ws, n_valids, use_kernels=use_kernels)
+    args = (R.key_desc, R.key_rank, R.src, R.dst, R.pos, R.ekey, R.epos,
+            replace, w_sel, f1_bpos, coin, phi_hi, phi_lo)
+    return args, state.m_seen + torch.sum(nv64)
+
+
+def _bulk_update_chunk_fused(state: EstimatorState, Ws: Tensor, n_valids: Tensor,
+                             key: Tensor, step0: int, *, use_kernels: bool) -> EstimatorState:
+    """The fused K-batch pipeline: ``chunk_inputs``, then the batch loop in
+    the ``fused_ingest`` kernel (``use_kernels``) or in its plain version."""
+    from repro_torch.kernels.fused_ingest import fused_ingest, fused_ingest_plain
+
+    args, m_out = chunk_inputs(state, Ws, n_valids, key, step0, use_kernels=use_kernels)
+    ingest = fused_ingest if use_kernels else fused_ingest_plain
+    f1, chi, f2, has_f3 = ingest(state.f1, state.chi, state.f2, state.has_f3, *args)
+    return EstimatorState(f1, chi, f2, has_f3, m_out)
+
+
+def bulk_update_chunk(state: EstimatorState, Ws: Tensor, n_valids: Tensor,
+                      key: Tensor, step0: int = 0, *, backend: str = "auto",
+                      search: str = "auto") -> EstimatorState:
+    """Fold K stacked batches into the state: bit-for-bit equal to
+
+        for i in range(K):
+            state = bulk_update_all(state, Ws[i], n_valids[i],
+                                    fold_in(key, step0 + i))
+
+    Ws: (K, s, 2) int32; n_valids: (K,) integer tensor; ``key`` is the
+    stream key. ``backend`` is an ingest backend
+    (``repro_torch.primitives.ingest``); ``search`` is the multisearch
+    backend of the "scan" route (the fused routes search inside the batch
+    loop: plain searches, or the kernel's own)."""
+    b = resolve_ingest_backend(backend, Ws.device)
+    if b == "scan":
+        return _bulk_update_chunk_scan(state, Ws, n_valids, key, step0, search)
+    return _bulk_update_chunk_fused(state, Ws, n_valids, key, step0,
+                                    use_kernels=(b == "kernel"))

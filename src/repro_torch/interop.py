@@ -1,0 +1,60 @@
+"""Carrying engine state between the JAX reference and the port.
+
+Both engines snapshot to the same flat dict of host numpy arrays: ``f1``,
+``chi``, ``f2``, ``has_f3``, ``m_seen`` (each with a leading tenant axis),
+``root_keys`` (T, 2) uint32, ``step``, ``dyn_step``, ``config`` = [r,
+batch_size, n_tenants] and ``scheme``. Because every random draw is a
+function of (root key, step), a snapshot taken mid-stream by either engine
+continues bit-identically in the other. These functions check a snapshot
+against that format and normalise its dtypes; they need neither framework's
+arrays, only numpy.
+"""
+from __future__ import annotations
+
+import hashlib
+
+import numpy as np
+
+_FIELDS = {
+    "f1": np.int32, "chi": np.int32, "f2": np.int32, "has_f3": np.bool_,
+    "m_seen": np.int64, "root_keys": np.uint32, "config": np.int64,
+}
+
+
+def _normalise(snap: dict) -> dict:
+    missing = [k for k in (*_FIELDS, "step") if k not in snap]
+    if missing:
+        raise KeyError(f"snapshot lacks {missing}")
+    out = {k: np.array(np.asarray(snap[k]), dtype=dt) for k, dt in _FIELDS.items()}
+    T = int(out["config"][2])
+    r = int(out["config"][0])
+    for k, shape in (("f1", (T, r, 2)), ("chi", (T, r)), ("f2", (T, r, 2)),
+                     ("has_f3", (T, r)), ("m_seen", (T,)), ("root_keys", (T, 2))):
+        if out[k].shape != shape:
+            raise ValueError(f"snapshot {k} has shape {out[k].shape}, expected {shape}")
+    out["step"] = np.int64(snap["step"])
+    out["dyn_step"] = np.int64(snap.get("dyn_step", snap["step"]))
+    out["scheme"] = np.array(str(np.asarray(snap.get("scheme", "global"))))
+    return out
+
+
+def from_jax_snapshot(snap: dict) -> dict:
+    """A ``repro`` engine snapshot as one ``repro_torch``'s engine restores."""
+    return _normalise(snap)
+
+
+def to_jax_snapshot(snap: dict) -> dict:
+    """A ``repro_torch`` engine snapshot as one ``repro``'s engine restores."""
+    return _normalise(snap)
+
+
+def state_sha256(snap: dict) -> str:
+    """sha256 over the estimator state of a snapshot: f1, chi, f2 (int32),
+    has_f3 (one byte each) and m_seen (int64), little-endian, in that order.
+    Equal digests mean bit-identical state."""
+    s = _normalise(snap)
+    h = hashlib.sha256()
+    for k, dt in (("f1", "<i4"), ("chi", "<i4"), ("f2", "<i4"),
+                  ("has_f3", "u1"), ("m_seen", "<i8")):
+        h.update(np.ascontiguousarray(s[k].astype(dt)).tobytes())
+    return h.hexdigest()

@@ -1,0 +1,89 @@
+"""fused_ingest: apply a K-batch chunk to the estimator state in one kernel
+(CUDA kernel ``csrc/fused_ingest.cu``; the counterpart of
+``repro/kernels/fused_ingest.py``).
+
+Contract: bit-identical to the scan of ``bulk_update_all`` over the same
+chunk (``repro_torch.kernels.ref.fused_ingest_ref``), given the chunk's
+hoisted randomness and its K rank structures from ``rank_all_chunk``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+Tensor = torch.Tensor
+_ARGS = [ctypes.c_void_p] * 21 + [ctypes.c_int64] * 3 + [ctypes.c_void_p]
+
+
+def fused_ingest_plain(
+    f1, chi, f2, has_f3, key_desc, key_rank, src, dst, pos, ekey, epos,
+    replace, w_sel, f1_bpos, coin, phi_hi, phi_lo,
+) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The K-batch loop in plain PyTorch: ``core.bulk.fused_batch`` per batch
+    with ``torch.searchsorted`` searches."""
+    from repro_torch.core.bulk import fused_batch
+    from repro_torch.core.rank import RankStructure
+
+    for k in range(replace.shape[0]):
+        # rank=None: the batch loop never reads the stored ranks
+        R = RankStructure(key_desc[k], key_rank[k], src[k], dst[k], pos[k],
+                          None, ekey[k], epos[k])
+        f1, chi, f2, has_f3 = fused_batch(
+            f1, chi, f2, has_f3, R, replace[k], w_sel[k], f1_bpos[k],
+            coin[k], phi_hi[k], phi_lo[k])
+    return f1, chi, f2, has_f3
+
+
+def fused_ingest(
+    f1, chi, f2, has_f3, key_desc, key_rank, src, dst, pos, ekey, epos,
+    replace, w_sel, f1_bpos, coin, phi_hi, phi_lo,
+) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Apply a K-batch chunk to the state; returns new (f1, chi, f2, has_f3).
+
+    State: f1/f2 (r, 2) int32, chi (r,) int32, has_f3 (r,) bool. Structures:
+    key_desc/key_rank (K, 2s) int64, src/dst/pos (K, 2s) int32, ekey (K, s)
+    int64, epos (K, s) int32. Per (batch, estimator): replace (K, r) bool,
+    w_sel (K, r, 2) int32, f1_bpos (K, r) int32, coin (K, r) float32,
+    phi_hi/phi_lo (K, r) int32 carrying the uint32 bits. The caller owns the
+    m_seen update."""
+    if f1.device.type == "cpu":
+        return fused_ingest_plain(
+            f1, chi, f2, has_f3, key_desc, key_rank, src, dst, pos, ekey, epos,
+            replace, w_sel, f1_bpos, coin, phi_hi, phi_lo)
+    dev = f1.device
+    K, r = replace.shape
+    s = ekey.shape[1]
+    i32, i64 = torch.int32, torch.int64
+    for t, name, dt, shape in (
+        (f1, "f1", i32, (r, 2)), (chi, "chi", i32, (r,)), (f2, "f2", i32, (r, 2)),
+        (has_f3, "has_f3", torch.bool, (r,)),
+        (key_desc, "key_desc", i64, (K, 2 * s)), (key_rank, "key_rank", i64, (K, 2 * s)),
+        (src, "src", i32, (K, 2 * s)), (dst, "dst", i32, (K, 2 * s)),
+        (pos, "pos", i32, (K, 2 * s)), (ekey, "ekey", i64, (K, s)),
+        (epos, "epos", i32, (K, s)), (replace, "replace", torch.bool, (K, r)),
+        (w_sel, "w_sel", i32, (K, r, 2)), (f1_bpos, "f1_bpos", i32, (K, r)),
+        (coin, "coin", torch.float32, (K, r)), (phi_hi, "phi_hi", i32, (K, r)),
+        (phi_lo, "phi_lo", i32, (K, r)),
+    ):
+        _build.check(t, name, dt, shape, dev)
+    if r >= 2**31 or 2 * s >= 2**31:
+        raise ValueError("fused_ingest: r and 2s must fit int32")
+    f1_out = torch.empty_like(f1)
+    chi_out = torch.empty_like(chi)
+    f2_out = torch.empty_like(f2)
+    has_f3_out = torch.empty_like(has_f3)
+    fn = _build.load("fused_ingest", "fused_ingest", _ARGS)
+    err = fn(
+        f1.data_ptr(), chi.data_ptr(), f2.data_ptr(), has_f3.data_ptr(),
+        key_desc.data_ptr(), key_rank.data_ptr(), src.data_ptr(), dst.data_ptr(),
+        pos.data_ptr(), ekey.data_ptr(), epos.data_ptr(), replace.data_ptr(),
+        w_sel.data_ptr(), f1_bpos.data_ptr(), coin.data_ptr(), phi_hi.data_ptr(),
+        phi_lo.data_ptr(), f1_out.data_ptr(), chi_out.data_ptr(), f2_out.data_ptr(),
+        has_f3_out.data_ptr(), r, K, s, _build.stream_handle(dev),
+    )
+    _build.raise_on_error(err, "fused_ingest")
+    _build.LAUNCHES["fused_ingest"] += 1
+    return f1_out, chi_out, f2_out, has_f3_out

@@ -1,0 +1,20 @@
+"""Plain PyTorch oracles for every kernel (the correctness contracts),
+mirroring ``repro/kernels/ref.py``. The tests hold each kernel's wrapper, on
+the CPU and on the card, against these."""
+from __future__ import annotations
+
+from repro_torch.kernels.bitonic import bitonic_sort_tiles_plain as bitonic_sort_tiles_ref
+from repro_torch.kernels.multisearch import multisearch_counts_plain as multisearch_counts_ref
+from repro_torch.kernels.segscan import segscan_plain as segscan_ref
+
+
+def fused_ingest_ref(state, Ws, n_valids, key, step0: int = 0):
+    """Chunk-ingest oracle: the sequential scan of ``bulk_update_all`` with
+    plain searches. The fused kernel path must be bit-identical to it."""
+    from repro_torch.core.bulk import _bulk_update_chunk_scan
+
+    return _bulk_update_chunk_scan(state, Ws, n_valids, key, step0, "eager")
+
+
+__all__ = ["bitonic_sort_tiles_ref", "fused_ingest_ref",
+           "multisearch_counts_ref", "segscan_ref"]

@@ -1,0 +1,198 @@
+"""The port's engine, service loop, data path and CLI against the JAX
+reference: snapshots in the same format that cross-restore in both
+directions and continue bit-identically, the same generated streams and
+superbatches, chunked ingest equal to per-batch ingest, and the package's
+import hygiene (no jax, no repro)."""
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+
+import repro  # noqa: F401  -- enables x64
+import torch
+
+from repro.data import graph_stream as jgs
+from repro.data import prefetch as jpf
+from repro.engine import EngineConfig as JaxConfig
+from repro.engine import TriangleCountEngine as JaxEngine
+from repro_torch.data import graph_stream as tgs
+from repro_torch.data import prefetch as tpf
+from repro_torch.engine import EngineConfig, TriangleCountEngine, run_stream
+from repro_torch.interop import from_jax_snapshot, state_sha256, to_jax_snapshot
+from repro_torch.launch import stream as cli
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+STATE = ("f1", "chi", "f2", "has_f3", "m_seen")
+
+
+def _edges(seed=0):
+    edges, _ = tgs.planted_triangle_stream(40, 700, 900, seed=seed)
+    return edges  # 820 edges
+
+
+def _port(r=512, s=64, K=1, **kw):
+    return TriangleCountEngine(EngineConfig(r=r, batch_size=s, chunk_size=K, seeds=(5,),
+                                            device="cpu", **kw))
+
+
+def _jax(r=512, s=64, K=1):
+    return JaxEngine(JaxConfig(r=r, batch_size=s, chunk_size=K, seeds=(5,)))
+
+
+def _assert_snap_equal(a, b):
+    for k in STATE + ("root_keys", "step", "dyn_step", "config"):
+        np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]), err_msg=k)
+
+
+def test_snapshot_format_matches_jax_engine():
+    snaps = []
+    for eng in (_port(), _jax()):
+        for W, nv in tgs.batches(_edges()[:130], 64):
+            eng.ingest(W, nv)
+        snaps.append(eng.snapshot())
+    port, ref = snaps
+    assert set(port) == set(ref)
+    for k in ref:
+        a, b = np.asarray(port[k]), np.asarray(ref[k])
+        assert (a.shape, a.dtype) == (b.shape, b.dtype), k
+    _assert_snap_equal(port, ref)
+    assert str(port["scheme"]) == str(ref["scheme"]) == "global"
+
+
+@pytest.mark.parametrize("K", [1, 4])
+def test_jax_snapshot_continues_in_port(K):
+    batches = list(tgs.batches(_edges(1), 64))  # 13 batches, ragged tail
+    jeng = _jax(K=K)
+    jeng.ingest_stream(iter(batches[:5]))
+    peng = TriangleCountEngine.from_snapshot(from_jax_snapshot(jeng.snapshot()),
+                                             chunk_size=K, device="cpu")
+    jeng.ingest_stream(iter(batches[5:]))
+    peng.ingest_stream(iter(batches[5:]))
+    _assert_snap_equal(jeng.snapshot(), peng.snapshot())
+    np.testing.assert_allclose(peng.estimate(), jeng.estimate(), rtol=1e-12)
+
+
+@pytest.mark.parametrize("K", [1, 4])
+def test_port_snapshot_continues_in_jax(K):
+    batches = list(tgs.batches(_edges(2), 64))
+    peng = _port(K=K)
+    peng.ingest_stream(iter(batches[:6]))
+    jeng = _jax(K=K)
+    jeng.restore(to_jax_snapshot(peng.snapshot()))
+    peng.ingest_stream(iter(batches[6:]))
+    jeng.ingest_stream(iter(batches[6:]))
+    _assert_snap_equal(jeng.snapshot(), peng.snapshot())
+
+
+def test_chunked_run_stream_equals_per_batch_and_restore():
+    edges = _edges(3)
+    per_batch, chunked = _port(K=1), _port(K=4)
+    rep1 = run_stream(per_batch, tgs.batches(edges, 64))
+    rep4 = run_stream(chunked, tgs.batches(edges, 64))
+    assert (rep1.batches, rep1.edges) == (rep4.batches, rep4.edges) == (13, 820)
+    assert state_sha256(per_batch.snapshot()) == state_sha256(chunked.snapshot())
+    resumed = _port(K=4, ingest="kernel")
+    resumed.restore(per_batch.snapshot())
+    _assert_snap_equal(resumed.snapshot(), chunked.snapshot())
+
+
+def test_estimate_cache_and_reports():
+    eng = _port(K=4)
+    seen = []
+    run_stream(eng, tgs.batches(_edges(), 64), report_every=4,
+               on_report=lambda step, est, m: seen.append((step, float(est[0]), int(m[0]))))
+    assert [s for s, _, _ in seen] == [4, 8, 12]
+    first = eng.estimate()
+    assert eng.estimate() is first  # answered from the per-step cache
+    eng.ingest(*next(tgs.batches(_edges(), 64)))
+    assert eng.estimate() is not first
+
+
+def test_restore_rejects_other_shapes_and_schemes():
+    snap = _port().snapshot()
+    with pytest.raises(ValueError):
+        _port(r=256).restore(snap)
+    snap["scheme"] = np.array("local")
+    with pytest.raises(ValueError, match="scheme"):
+        _port().restore(snap)
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TriangleCountEngine(EngineConfig(r=64, batch_size=8))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--graph", "er", "--nodes", "20", "--edges", "30", "--estimators", "64",
+                  "--batch", "8"])
+
+
+def test_unported_features_name_their_roadmap_item():
+    for kw, item in (({"n_tenants": 2}, "Multi-tenant"), ({"scheme": "local"}, "Schemes"),
+                     ({"window": 10}, "Dynamic streams")):
+        with pytest.raises(NotImplementedError, match=item):
+            EngineConfig(r=64, batch_size=8, device="cpu", **kw)
+
+
+def test_generators_match_jax():
+    np.testing.assert_array_equal(jgs.erdos_renyi_stream(60, 200, seed=4),
+                                  tgs.erdos_renyi_stream(60, 200, seed=4))
+    np.testing.assert_array_equal(jgs.barabasi_albert_stream(300, 4, seed=4),
+                                  tgs.barabasi_albert_stream(300, 4, seed=4))
+    (je, jt), (te, tt) = (jgs.planted_triangle_stream(20, 300, 500, seed=4),
+                          tgs.planted_triangle_stream(20, 300, 500, seed=4))
+    np.testing.assert_array_equal(je, te)
+    assert jt == tt == 20
+    for (jw, jn), (tw, tn) in zip(jgs.batches(te, 64), tgs.batches(te, 64), strict=True):
+        np.testing.assert_array_equal(jw, tw)
+        assert jn == tn
+
+
+def test_superbatches_match_jax():
+    batches = list(tgs.batches(_edges(), 64))
+    for (jk, jp), (tk, tp) in zip(jpf.superbatches(iter(batches), 4, 64),
+                                  tpf.superbatches(iter(batches), 4, 64), strict=True):
+        assert jk == tk
+        for a, b in zip(jp, tp):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_prefetch_reraises_producer_error():
+    def source():
+        yield 1
+        yield 2
+        raise KeyError("bad tail")
+
+    q = tpf.PrefetchQueue(source(), depth=1)
+    assert [q.get(), q.get()] == [1, 2]
+    with pytest.raises(KeyError, match="bad tail"):
+        q.get()
+    assert list(tpf.PrefetchQueue(iter(range(5)), depth=2)) == [0, 1, 2, 3, 4]
+
+
+def test_cli_prints_the_output_contract(capsys):
+    cli.main(["--device", "cpu", "--graph", "planted", "--triangles", "30", "--edges", "400",
+              "--nodes", "600", "--estimators", "1024", "--batch", "64", "--chunk", "2",
+              "--assert-rel-err", "0.9"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "stream: m=490 tau=30"
+    assert out[1].startswith("processed 490 edges in ")
+    assert out[2].startswith("estimate: ") and "rel.err" in out[2]
+    assert out[3].startswith("rel.err ") and out[3].endswith("OK")
+
+
+def _imports(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_repro():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    for f in files:
+        for mod in _imports(f):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), f"{f.relative_to(ROOT)} imports {mod}"

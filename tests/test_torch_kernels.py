@@ -1,0 +1,208 @@
+"""The port's kernels: each plain version against the JAX package's
+``kernels/ref.py`` oracle on the oracle harness's adversarial inputs, once
+against the Pallas kernel in interpret mode at a tiny shape, the wrappers'
+CPU dispatch and argument checks, and (on a CUDA machine only) each CUDA
+kernel against its plain version."""
+import sys
+import pathlib
+
+import numpy as np
+import pytest
+
+import repro  # noqa: F401  -- enables x64
+import jax
+import jax.numpy as jnp
+import torch
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
+from _kernel_oracle import _adversarial_stream, key_families  # noqa: E402
+from repro.core.state import init_state as jax_init_state  # noqa: E402
+from repro.kernels import ops  # noqa: E402
+from repro.kernels import ref as kref  # noqa: E402
+from repro_torch import rng  # noqa: E402
+from repro_torch.core.bulk import chunk_inputs  # noqa: E402
+from repro_torch.core.state import init_state  # noqa: E402
+from repro_torch.kernels import LAUNCHES, _build, ref  # noqa: E402
+from repro_torch.kernels.bitonic import bitonic_sort_tiles, bitonic_sort_tiles_plain  # noqa: E402
+from repro_torch.kernels.fused_ingest import fused_ingest, fused_ingest_plain  # noqa: E402
+from repro_torch.kernels.multisearch import multisearch_counts, multisearch_counts_plain  # noqa: E402
+from repro_torch.kernels.segscan import segscan, segscan_plain  # noqa: E402
+
+INF64 = np.iinfo(np.int64).max
+T = torch.from_numpy
+FIELDS = ("f1", "chi", "f2", "has_f3")
+jax_segscan_ref = jax.jit(kref.segscan_ref)
+
+
+def _queries(n, q, seed):
+    g = np.random.default_rng(seed)
+    qs = np.concatenate([g.integers(-5, max(4 * n, 8), max(q - 2, 0)),
+                         np.array([INF64] * min(q, 1) + [0] * min(max(q - 1, 0), 1))])
+    return qs[:q].astype(np.int64)
+
+
+@pytest.mark.parametrize("n,q", [(0, 4), (4, 0), (1, 1), (63, 33), (64, 65), (65, 200)])
+def test_multisearch_plain_vs_jax_ref(n, q):
+    for name, keys in key_families(n, n + q).items():
+        keys = np.sort(keys)
+        qs = _queries(n, q, n * q)
+        want = kref.multisearch_counts_ref(jnp.asarray(keys), jnp.asarray(qs))
+        got = multisearch_counts(T(keys), T(qs))  # CPU tensors: the plain version
+        for w, g in zip(want, got):
+            np.testing.assert_array_equal(np.asarray(w), g.numpy(), err_msg=name)
+
+
+@pytest.mark.parametrize("n", [0, 1, 127, 128, 129, 4097])
+def test_segscan_plain_vs_jax_ref(n):
+    g = np.random.default_rng(n)
+    v = g.integers(-5, 7, n).astype(np.int32)
+    for name, f in {"random": g.random(n) < 0.2, "sparse": g.random(n) < 0.002,
+                    "none": np.zeros(n, bool), "all": np.ones(n, bool)}.items():
+        want = jax_segscan_ref(jnp.asarray(v), jnp.asarray(f)) if n else v
+        np.testing.assert_array_equal(np.asarray(want), segscan(T(v), T(f)).numpy(), err_msg=name)
+
+
+@pytest.mark.parametrize("n,tile", [(0, 16), (15, 16), (16, 16), (17, 16), (255, 256), (513, 256)])
+def test_bitonic_plain_vs_jax_ref(n, tile):
+    """The plain version is a stable sort: it equals the (stable) oracle
+    element for element, payloads included."""
+    for name, keys in key_families(n, n + tile).items():
+        vals = np.arange(n, dtype=np.int32)
+        want = kref.bitonic_sort_tiles_ref(jnp.asarray(keys), jnp.asarray(vals), tile)
+        got = bitonic_sort_tiles(T(keys), T(vals), tile)
+        for w, g in zip(want, got):
+            np.testing.assert_array_equal(np.asarray(w), g.numpy(), err_msg=name)
+
+
+@pytest.mark.parametrize("r,s,K", [(33, 6, 3), (200, 40, 4), (64, 16, 1)])
+def test_fused_ingest_plain_vs_jax_ref(r, s, K):
+    """chunk_inputs + the fused loop's plain version against the JAX scan of
+    bulk_update_all over the same chunk."""
+    Ws, nv = _adversarial_stream(r, s, K, seed=r)
+    want = kref.fused_ingest_ref(jax_init_state(r), jnp.asarray(Ws), jnp.asarray(nv),
+                                 jax.random.PRNGKey(r), 5)
+    st = init_state(r)
+    args, m_out = chunk_inputs(st, T(Ws), T(nv), rng.PRNGKey(r), 5, use_kernels=False)
+    got = fused_ingest(st.f1, st.chi, st.f2, st.has_f3, *args)
+    for f, g in zip(FIELDS, got):
+        np.testing.assert_array_equal(np.asarray(getattr(want, f)), g.numpy(), err_msg=f)
+    assert int(m_out) == int(want.m_seen)
+    port_ref = ref.fused_ingest_ref(init_state(r), T(Ws), T(nv), rng.PRNGKey(r), 5)
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(port_ref, f).numpy(), np.asarray(getattr(want, f)))
+
+
+def test_plain_versions_vs_pallas_interpret():
+    """Each plain version once against the Pallas kernel itself, run in
+    interpret mode at a tiny shape."""
+    g = np.random.default_rng(0)
+    keys = np.sort(g.integers(0, 50, 70)).astype(np.int64)
+    qs = _queries(70, 40, 1)
+    for w, t in zip(ops.multisearch_counts_op(jnp.asarray(keys), jnp.asarray(qs), q_block=32, k_block=64),
+                    multisearch_counts_plain(T(keys), T(qs))):
+        np.testing.assert_array_equal(np.asarray(w), t.numpy())
+    v = g.integers(-3, 5, 300).astype(np.int32)
+    f = g.random(300) < 0.1
+    np.testing.assert_array_equal(np.asarray(ops.segscan_op(jnp.asarray(v), jnp.asarray(f), block=128)),
+                                  segscan_plain(T(v), T(f)).numpy())
+    k = g.integers(0, 1000, 64).astype(np.int64)  # distinct-ish keys: exact payloads
+    k = np.unique(k)[:32]
+    g.shuffle(k)
+    vals = np.arange(32, dtype=np.int32)
+    for w, t in zip(ops.bitonic_sort_tiles_op(jnp.asarray(k), jnp.asarray(vals), tile=16),
+                    bitonic_sort_tiles_plain(T(k), T(vals), 16)):
+        np.testing.assert_array_equal(np.asarray(w), t.numpy())
+    r, s, K = 40, 8, 2
+    Ws, nv = _adversarial_stream(r, s, K, seed=3)
+    st = init_state(r)
+    args, _ = chunk_inputs(st, T(Ws), T(nv), rng.PRNGKey(3), 0, use_kernels=False)
+    plain = fused_ingest_plain(st.f1, st.chi, st.f2, st.has_f3, *args)
+    jargs = [jnp.asarray(a.numpy()) for a in args]
+    jargs[-2:] = [a.astype(jnp.uint32) for a in jargs[-2:]]  # phi words as uint32
+    js = jax_init_state(r)
+    pallas = ops.fused_ingest_op(js.f1, js.chi, js.f2, js.has_f3, *jargs, est_block=16)
+    for w, t in zip(pallas, plain):
+        np.testing.assert_array_equal(np.asarray(w), t.numpy())
+
+
+def test_wrappers_take_plain_version_only_on_cpu():
+    before = dict(LAUNCHES)
+    k = torch.arange(10, dtype=torch.int64)
+    multisearch_counts(k, k)
+    segscan(torch.ones(10, dtype=torch.int32), torch.zeros(10, dtype=torch.bool))
+    bitonic_sort_tiles(k.flip(0).contiguous(), torch.zeros(10, dtype=torch.int32), 16)
+    assert LAUNCHES == before  # no launch counted off the card
+
+
+def test_wrapper_argument_checks():
+    with pytest.raises(ValueError, match="CUDA"):
+        _build.check(torch.zeros(3, dtype=torch.int64), "keys", torch.int64)
+    with pytest.raises(ValueError, match="power of two"):
+        bitonic_sort_tiles(torch.zeros(6, dtype=torch.int64), torch.zeros(6, dtype=torch.int32), 6)
+    with pytest.raises(RuntimeError, match="error code 7"):
+        _build.raise_on_error(7, "segscan")
+
+
+def test_build_is_keyed_by_source_and_needs_nvcc(monkeypatch, tmp_path):
+    names = {_build.library_path(n).name for n in _build.SOURCES}
+    assert len(names) == 4 and all(n.startswith("lib") and n.endswith(".so") for n in names)
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "segscan.cu").write_text("// one\n")
+    one = _build.library_path("segscan")
+    (tmp_path / "segscan.cu").write_text("// two\n")
+    assert _build.library_path("segscan") != one
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build._nvcc()
+
+
+# ---------------------------------------------------------------------------
+# on the card: each CUDA kernel against its plain version
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: a CUDA kernel has no CPU mode")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,q", [(0, 5), (5, 0), (257, 1000), (100_000, 4096)])
+def test_cuda_multisearch(cuda, n, q):
+    for keys in key_families(n, q).values():
+        k, qs = T(np.sort(keys)).to(cuda), T(_queries(n, q, 7)).to(cuda)
+        for a, b in zip(multisearch_counts(k, qs), multisearch_counts_plain(k, qs)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4095, 4097, 1_000_003])
+def test_cuda_segscan(cuda, n):
+    g = np.random.default_rng(n)
+    v = T(g.integers(-5, 7, n).astype(np.int32)).to(cuda)
+    for p in (0.0, 0.0005, 0.2, 1.0):
+        f = T(g.random(n) < p).to(cuda)
+        assert torch.equal(segscan(v, f), segscan_plain(v, f))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,tile", [(17, 16), (8193, 8192), (3 * 2**16, 2**16)])
+def test_cuda_bitonic(cuda, n, tile):
+    keys = T(np.random.default_rng(n).permutation(n).astype(np.int64)).to(cuda)  # distinct
+    vals = torch.arange(n, dtype=torch.int32, device=cuda)
+    for a, b in zip(bitonic_sort_tiles(keys, vals, tile), bitonic_sort_tiles_plain(keys, vals, tile)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,s,K", [(33, 6, 3), (5000, 512, 4)])
+def test_cuda_fused_ingest(cuda, r, s, K):
+    Ws, nv = _adversarial_stream(r, s, K, seed=s)
+    st = init_state(r, cuda)
+    args, _ = chunk_inputs(st, T(Ws).to(cuda), T(nv).to(cuda), rng.PRNGKey(s, cuda), 0,
+                           use_kernels=True)
+    for a, b in zip(fused_ingest(st.f1, st.chi, st.f2, st.has_f3, *args),
+                    fused_ingest_plain(st.f1, st.chi, st.f2, st.has_f3, *args)):
+        assert torch.equal(a, b)
