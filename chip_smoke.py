@@ -7,14 +7,20 @@ kernel to its plain PyTorch version.
 Phases, each of which raises on failure (nothing is caught):
 
   card       the GPU's name and power limit, as nvidia-smi prints them;
-  build      nvcc builds the four kernels from csrc/, in parallel;
+  build      nvcc builds the five kernels from csrc/, in parallel;
   edges      each kernel against its plain version on the edge cases of the
              JAX package's oracle harness (tile sizes +-1, n = 0, q = 0,
              all-equal, duplicate-heavy and INF64 keys, segments that cross
-             CTA tiles), equal under each kernel's contract;
+             CTA tiles; for segment_sum dropped ids, every row in one bin,
+             n = 0, m = 0, d = 1 and 2), equal under each kernel's contract;
   golden     the kernel path on a small chunked stream with a ragged tail
              reproduces the JAX reference's final-state sha256 and estimate
              (src/repro_torch/golden/stream_small.json, written by JAX);
+  golden_local  the same stream under the local scheme (4 pools) on the
+             kernel path reproduces JAX's state sha256, per-vertex estimate
+             sha256 and sum/3 (golden/local_small.json);
+  naive      the naive scheme (no kernel) on three batches reproduces JAX's
+             state sha256 (golden/naive_small.json);
   full       the paper's bulk_s1m_r2m shape (r = 2^21 estimators, batch
              s = 2^20, chunk K = 4) through TriangleCountEngine + run_stream on
              a 9,088,608-edge planted-triangle stream: two chunks, then a
@@ -22,17 +28,30 @@ Phases, each of which raises on failure (nothing is caught):
              that every kernel was launched, that the state is bit-identical
              to the plain path (scan ingest, torch.searchsorted), that a
              snapshot after chunk 1 restored into a fresh engine finishes
-             with the same state, and that rel.err <= 5%;
+             with the same state, and that rel.err <= 5%; it also times the
+             default batch validation on the host;
+  local_full the same stream under the local scheme (8 pools, 2^22
+             vertices) through TriangleCountEngine + run_stream: per-batch
+             ingest (multisearch_counts) and the per-vertex estimate
+             (segment_sum). It checks that both kernels were launched, that
+             the estimate equals the plain path's exactly, that a snapshot
+             after chunk 1 restored into a fresh engine and a checkpointed
+             run cut after chunk 1 and resumed both finish equal, and that
+             sum/3 is within 5% of tau; it prints l1.err against the
+             planted truth without gating on it;
   kernels    each kernel and its plain version at the main path's full-size
              shapes: equal, and timed with CUDA events beside its bound and,
              where one PyTorch call computes the same function, that call;
              then where one chunk's device time goes (randomness, structure
              build, fused loop) and the ragged tail batch's time;
-  cli        python -m repro_torch.launch.stream prints the golden CLI line.
+  cli        python -m repro_torch.launch.stream prints the golden CLI lines
+             (global and local).
 
-Tolerance: exact. Every kernel computes integer or bit-defined results, so
-each is held to its plain version with max |diff| = 0 (the tile sort under
-its split contract: keys bit-equal, payloads equal as a multiset per tile).
+Tolerance: exact. Every kernel computes integer or bit-defined results
+(segment_sum sums integer-valued float64 below 2^53, where any order of its
+atomic adds gives the same sums), so each is held to its plain version with
+max |diff| = 0 (the tile sort under its split contract: keys bit-equal,
+payloads equal as a multiset per tile).
 
 The line before last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Exits nonzero without a CUDA device or without
@@ -44,8 +63,10 @@ import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -58,8 +79,10 @@ HBM_BYTES_PER_S = 3.35e12
 # (67 T/s for float32) is taken for 32-bit integer operations, and an int64
 # comparison or add counts as two of them
 INT32_OPS_PER_S = 67e12
+# FP64 outside the tensor cores (NVIDIA data sheet, H100 SXM)
+FP64_OPS_PER_S = 34e12
 FULL = {"r": 2**21, "s": 2**20, "K": 4, "edges": 9_088_608, "triangles": 262_144,
-        "vertices": 2**22, "seed": 7, "groups": 9}
+        "vertices": 2**22, "seed": 7, "groups": 9, "pools": 8}
 KERNELS = {  # name -> (source, TPU kernel it replaces)
     "fused_ingest": ("src/repro_torch/csrc/fused_ingest.cu",
                      "src/repro/kernels/fused_ingest.py:67"),
@@ -68,6 +91,8 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     "segscan": ("src/repro_torch/csrc/segscan.cu", "src/repro/kernels/segscan.py:41"),
     "multisearch_counts": ("src/repro_torch/csrc/multisearch.cu",
                            "src/repro/kernels/multisearch.py:28"),
+    "segment_sum": ("src/repro_torch/csrc/segment_sum.cu",
+                    "src/repro/kernels/segment_sum.py:25"),
 }
 INF64 = np.iinfo(np.int64).max
 
@@ -93,9 +118,9 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float, ops_per_s: float = INT32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -196,6 +221,7 @@ def phase_edges(dev) -> None:
     from repro_torch.kernels import ref
     from repro_torch.kernels.bitonic import bitonic_sort_tiles
     from repro_torch.kernels.multisearch import multisearch_counts
+    from repro_torch.kernels.segment_sum import segment_sum
     from repro_torch.kernels.segscan import segscan
 
     cases = 0
@@ -243,6 +269,18 @@ def phase_edges(dev) -> None:
         for f in want._fields:
             require_equal(f"fused chunk r={r} s={s} K={K} {f}", getattr(got, f), getattr(want, f))
         cases += 1
+    # segment_sum: integer-valued float64, so atomics in any order are exact
+    for n, m, d in itertools.product((0, 1, 255, 256, 257, 4097, 100_003), (0, 1, 31, 1000),
+                                     (1, 2)):
+        g = np.random.default_rng(n + m + d)
+        v = torch.from_numpy(g.integers(-3, 9, (n, d)).astype(np.float64)).to(dev)
+        for fam, ids in {"random": g.integers(0, max(m, 1), n),
+                         "with_dropped": g.integers(-2, max(m, 1) + 3, n),
+                         "all_one_segment": np.zeros(n, np.int64)}.items():
+            it = torch.from_numpy(ids.astype(np.int32)).to(dev)
+            require_equal(f"segment_sum n={n} m={m} d={d} {fam}", segment_sum(v, it, m),
+                          ref.segment_sum_ref(v, it, m))
+            cases += 1
     torch.cuda.synchronize()
     emit({"phase": "edges", "cases": cases, "ok": True})
 
@@ -268,6 +306,48 @@ def phase_golden(dev) -> None:
     if abs(est - gold["estimate"]) > 1e-12 * abs(gold["estimate"]):
         raise AssertionError(f"golden: estimate {est!r} != JAX {gold['estimate']!r}")
     emit({"phase": "golden", "state_sha256": digest, "estimate": est, "ok": True})
+
+
+def phase_golden_local(dev) -> None:
+    from repro_torch.data.graph_stream import batches, planted_triangle_stream
+    from repro_torch.engine import EngineConfig, TriangleCountEngine, run_stream
+    from repro_torch.interop import estimate_sha256, state_sha256
+
+    gold = json.loads((ROOT / "src/repro_torch/golden/local_small.json").read_text())
+    st, en = gold["stream"], gold["engine"]
+    edges, _ = planted_triangle_stream(st["triangles"], st["noise_edges"], st["vertices"],
+                                       seed=st["seed"])
+    eng = TriangleCountEngine(EngineConfig(
+        r=en["r"], batch_size=en["batch_size"], chunk_size=en["chunk_size"],
+        groups=en["groups"], seeds=(en["seed"],), device=dev.type, ingest="kernel",
+        multisearch="kernel", scheme="local", scheme_params=gold["scheme_params"]))
+    run_stream(eng, batches(edges, en["batch_size"]))
+    est = eng.estimate()[0]
+    got = {"step": eng.step, "state_sha256": state_sha256(eng.snapshot()),
+           "estimate_sha256": estimate_sha256(est), "sum3": float(est.sum()) / 3}
+    for k, v in got.items():
+        if v != gold[k]:
+            raise AssertionError(f"golden_local: {k} {v!r} != JAX {gold[k]!r}")
+    emit({"phase": "golden_local", **got, "ok": True})
+
+
+def phase_naive(dev) -> None:
+    from repro_torch.data.graph_stream import batches, planted_triangle_stream
+    from repro_torch.engine import EngineConfig, TriangleCountEngine, run_stream
+    from repro_torch.interop import state_sha256
+
+    gold = json.loads((ROOT / "src/repro_torch/golden/naive_small.json").read_text())
+    st, en = gold["stream"], gold["engine"]
+    edges, _ = planted_triangle_stream(st["triangles"], st["noise_edges"], st["vertices"],
+                                       seed=st["seed"])
+    eng = TriangleCountEngine(EngineConfig(
+        r=en["r"], batch_size=en["batch_size"], chunk_size=en["chunk_size"],
+        groups=en["groups"], seeds=(en["seed"],), device=dev.type, scheme="naive"))
+    run_stream(eng, batches(edges[: gold["edges"]], en["batch_size"]))
+    digest, est = state_sha256(eng.snapshot()), float(eng.estimate()[0])
+    if digest != gold["state_sha256"] or eng.step != gold["step"] or est != gold["estimate"]:
+        raise AssertionError(f"naive: state sha256 {digest} != JAX {gold['state_sha256']}")
+    emit({"phase": "naive", "state_sha256": digest, "estimate": est, "ok": True})
 
 
 def planted_full(seed: int):
@@ -314,7 +394,8 @@ def phase_full(dev) -> dict:
     rep = run_stream(eng, batches(edges, s))
     launches = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in ("fused_ingest", "bitonic_sort_tiles", "segscan",
+                           "multisearch_counts") if launches[k] == 0]
     if missing:
         raise AssertionError(f"full: kernels never launched on the main path: {missing}")
     digest = state_sha256(eng.snapshot())
@@ -333,6 +414,17 @@ def phase_full(dev) -> dict:
     t0 = time.perf_counter()
     run_stream(plain, batches(edges, s))
     plain_s = time.perf_counter() - t0
+
+    # host cost of the default validation, per batch of s edges
+    from repro_torch.engine.faults import validate_batch
+
+    t0 = time.perf_counter()
+    n_checked = 0
+    for W, nv in batches(edges, s):
+        if validate_batch(W, nv) is not None:
+            raise AssertionError("full: a generated batch failed validation")
+        n_checked += 1
+    validate_ms = (time.perf_counter() - t0) * 1e3 / n_checked
     if state_sha256(plain.snapshot()) != digest:
         raise AssertionError("full: kernel path state differs from the plain path")
 
@@ -340,7 +432,7 @@ def phase_full(dev) -> dict:
     run_stream(first, itertools.islice(batches(edges, s), K))
     resumed = engine("kernel", "kernel")
     resumed.restore(first.snapshot())
-    run_stream(resumed, itertools.islice(batches(edges, s), K, None))
+    run_stream(resumed, batches(edges, s))  # run_stream skips the first engine.step batches
     if state_sha256(resumed.snapshot()) != digest:
         raise AssertionError("full: snapshot after chunk 1 + restore diverged")
 
@@ -348,11 +440,93 @@ def phase_full(dev) -> dict:
           "tau": tau, "estimate": est, "rel_err": rel, "edges_per_s": rep.edges_per_s,
           "seconds": rep.seconds, "plain_path_seconds": plain_s,
           "peak_device_bytes": peak, "launches": launches, "state_sha256": digest,
-          "plain_path_equal": True, "restore_equal": True})
-    return {"launches": launches, "state": eng.state, "edges": edges}
+          "plain_path_equal": True, "restore_equal": True,
+          "validate_ms_per_batch": validate_ms})
+    return {"launches": launches, "state": eng.state, "edges": edges, "tau": tau}
 
 
-def phase_kernels(dev, full: dict) -> list:
+def phase_local_full(dev, full: dict) -> dict:
+    import torch
+
+    from repro_torch.data.graph_stream import batches
+    from repro_torch.engine import EngineConfig, TriangleCountEngine, run_stream
+    from repro_torch.interop import state_sha256
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    edges, tau = full["edges"], full["tau"]
+    s, K, V = FULL["s"], FULL["K"], FULL["vertices"]
+    params = {"n_vertices": V, "n_pools": FULL["pools"]}
+
+    def engine(ingest, multisearch):
+        return TriangleCountEngine(EngineConfig(
+            r=FULL["r"], batch_size=s, chunk_size=K, groups=FULL["groups"],
+            seeds=(FULL["seed"],), device=dev.type, ingest=ingest, multisearch=multisearch,
+            scheme="local", scheme_params=params))
+
+    eng = engine("kernel", "kernel")
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    rep = run_stream(eng, batches(edges, s))
+    t0 = time.perf_counter()
+    est = eng.estimate()[0]
+    estimate_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    missing = [k for k in ("multisearch_counts", "segment_sum") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"local_full: kernels never launched on the local path: {missing}")
+    digest = state_sha256(eng.snapshot())
+    sum3 = float(est.sum()) / 3
+    rel = abs(sum3 - tau) / tau
+    # the planted triangles are disjoint on vertices 0 .. 3 tau - 1: each of
+    # those is in exactly one triangle, every other vertex in none
+    truth = np.zeros(V, np.int64)
+    truth[: 3 * tau] = 1
+    l1 = float(np.abs(est - truth).sum() / truth.sum())
+    # sum/3 is the mean of r coarse estimates: the global estimator's mean
+    # without the median, so the 5% limit of the full phase holds here too
+    if rel > 0.05:
+        raise AssertionError(f"local_full: sum/3 {sum3} misses tau {tau} by {rel:.4%} > 5%")
+
+    plain = engine("scan", "eager")
+    run_stream(plain, batches(edges, s))
+    if state_sha256(plain.snapshot()) != digest or not np.array_equal(plain.estimate()[0], est):
+        raise AssertionError("local_full: kernel path estimate differs from the plain path")
+
+    first = engine("kernel", "kernel")
+    run_stream(first, itertools.islice(batches(edges, s), K))
+    resumed = engine("kernel", "kernel")
+    resumed.restore(first.snapshot())
+    run_stream(resumed, batches(edges, s))  # run_stream skips the first engine.step batches
+    if state_sha256(resumed.snapshot()) != digest or not np.array_equal(resumed.estimate()[0], est):
+        raise AssertionError("local_full: snapshot after chunk 1 + restore diverged")
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="ckpt_smoke_", dir=ROOT / "build")
+    try:
+        t0 = time.perf_counter()
+        run_stream(engine("kernel", "kernel"), itertools.islice(batches(edges, s), K),
+                   ckpt_dir=ckpt_dir, ckpt_every=K)
+        cut_s = time.perf_counter() - t0
+        again = engine("kernel", "kernel")
+        rep2 = run_stream(again, batches(edges, s), ckpt_dir=ckpt_dir, ckpt_every=K)
+    finally:
+        shutil.rmtree(ckpt_dir)
+    if rep2.resumed_from != K or state_sha256(again.snapshot()) != digest \
+            or not np.array_equal(again.estimate()[0], est):
+        raise AssertionError("local_full: checkpointed run cut after chunk 1 and resumed diverged")
+
+    emit({"phase": "local_full", "r": FULL["r"], "s": s, "K": K, "pools": FULL["pools"],
+          "n_vertices": V, "m": int(len(edges)), "tau": tau, "sum3": sum3, "rel_err": rel,
+          "l1_err": l1, "edges_per_s": rep.edges_per_s, "seconds": rep.seconds,
+          "estimate_seconds": estimate_s, "ckpt_cut_run_seconds": cut_s,
+          "peak_device_bytes": peak, "launches": launches, "state_sha256": digest,
+          "plain_path_equal": True, "restore_equal": True, "ckpt_resume_equal": True})
+    return {"launches": launches, "state": eng.state, "scheme": eng.scheme}
+
+
+def phase_kernels(dev, full: dict, local: dict) -> list:
     import torch
 
     from repro_torch import rng as trng
@@ -369,6 +543,7 @@ def phase_kernels(dev, full: dict) -> list:
     from repro_torch.kernels.bitonic import bitonic_sort_tiles, bitonic_sort_tiles_plain
     from repro_torch.kernels.fused_ingest import fused_ingest, fused_ingest_plain
     from repro_torch.kernels.multisearch import multisearch_counts, multisearch_counts_plain
+    from repro_torch.kernels.segment_sum import segment_sum, segment_sum_plain
     from repro_torch.kernels.segscan import segscan, segscan_plain
     from repro_torch.primitives.segscan import segment_starts
     from repro_torch.primitives.sort import pack2
@@ -382,11 +557,11 @@ def phase_kernels(dev, full: dict) -> list:
     key_desc, key_rank, src, dst, pos, ekey, epos = args[:7]
     rows = []
 
-    def row(name, err, ms, plain_ms, lib_ms, nb, ops):
-        b_ms, b_by = bound(nb, ops)
+    def row(name, err, ms, plain_ms, lib_ms, nb, ops, ops_per_s=INT32_OPS_PER_S, path=full):
+        b_ms, b_by = bound(nb, ops, ops_per_s)
         src_path, replaces = KERNELS[name]
         rows.append({"name": name, "route": "cuda", "source": src_path, "replaces": replaces,
-                     "launches": full["launches"][name], "max_abs_err": err, "ms": ms,
+                     "launches": path["launches"][name], "max_abs_err": err, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": lib_ms})
 
@@ -415,9 +590,13 @@ def phase_kernels(dev, full: dict) -> list:
                           bitonic_sort_tiles_plain(kf, af, tile))
     n = kf.numel()
     stages = int(math.log2(tile))
+
+    def library_tile_sort():  # keys and payloads, as the kernel returns them
+        keys, order = torch.sort(kd_p, dim=1)
+        return keys, torch.gather(arc_p, 1, order)
+
     row("bitonic_sort_tiles", err, time_ms(lambda: bitonic_sort_tiles(kf, af, tile)),
-        time_ms(lambda: bitonic_sort_tiles_plain(kf, af, tile)),
-        time_ms(lambda: torch.sort(kd_p, dim=1)),
+        time_ms(lambda: bitonic_sort_tiles_plain(kf, af, tile)), time_ms(library_tile_sort),
         2 * nbytes(kf, af), 2 * (n // 2) * stages * (stages + 1) // 2)
 
     # segscan: Lemma 4.3 ranks over the chunk's sorted arcs
@@ -445,8 +624,25 @@ def phase_kernels(dev, full: dict) -> list:
     depth = math.ceil(math.log2(kd0.numel() + 1))
     row("multisearch_counts", err, time_ms(lambda: multisearch_counts(kd0, q1)),
         time_ms(lambda: multisearch_counts_plain(kd0, q1)),
-        time_ms(lambda: torch.searchsorted(kd0, q1)),
+        time_ms(lambda: (torch.searchsorted(kd0, q1, side="left", out_int32=True),
+                         torch.searchsorted(kd0, q1, side="right", out_int32=True))),
         nbytes(kd0, q1) + 2 * 4 * q1.numel(), 2 * 2 * q1.numel() * depth)
+
+    # segment_sum: the local scheme's attribution scatter over the local
+    # run's final state, 3r rows into n_vertices bins
+    vals, ids = local["scheme"].attribution_inputs(local["state"], 0, r)
+    m = local["scheme"].n_vertices
+    got, want = segment_sum(vals, ids, m), segment_sum_plain(vals, ids, m)
+    require_equal("segment_sum full", got, want)
+    keep = (ids >= 0) & (ids < m)
+    ids_in, vals_in = ids[keep].long(), vals[keep]
+    kept = int(ids_in.numel())
+    row("segment_sum", max_abs(got, want), time_ms(lambda: segment_sum(vals, ids, m)),
+        time_ms(lambda: segment_sum_plain(vals, ids, m)),
+        time_ms(lambda: torch.zeros((m, 1), dtype=torch.float64, device=dev).index_add_(
+            0, ids_in, vals_in)),
+        nbytes(ids) + 8 * kept + m * 8, kept, FP64_OPS_PER_S, local)
+    rows[-1]["rows_in_range"] = kept
     emit({"phase": "kernels", "ok": True})
 
     # where one chunk's device time goes on the kernel route, and the ragged
@@ -465,20 +661,30 @@ def phase_kernels(dev, full: dict) -> list:
     return rows
 
 
-def phase_cli() -> None:
-    gold = json.loads((ROOT / "src/repro_torch/golden/stream_small.json").read_text())
+def cli_lines(args) -> list:
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.stream", *gold["cli"]["args"]],
+        [sys.executable, "-m", "repro_torch.launch.stream", *args],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=600, check=True).stdout
     lines = out.splitlines()
-    for prefix in ("stream: m=", "processed ", "estimate: "):
+    for prefix in ("stream: m=", "processed "):
         if not any(ln.startswith(prefix) for ln in lines):
             raise AssertionError(f"cli: no {prefix!r} line in:\n{out}")
-    est_line = next(ln for ln in lines if ln.startswith("estimate: "))
+    return lines
+
+
+def phase_cli() -> None:
+    gold = json.loads((ROOT / "src/repro_torch/golden/stream_small.json").read_text())
+    lines = cli_lines(gold["cli"]["args"])
+    est_line = next((ln for ln in lines if ln.startswith("estimate: ")), None)
     if est_line != gold["cli"]["estimate_line"]:
         raise AssertionError(f"cli: {est_line!r} != JAX CLI {gold['cli']['estimate_line']!r}")
-    emit({"phase": "cli", "estimate_line": est_line, "ok": True})
+    local = json.loads((ROOT / "src/repro_torch/golden/local_small.json").read_text())
+    lines = cli_lines(local["cli"]["args"])
+    local_line = next((ln for ln in lines if ln.startswith("local[tenant 0] ")), None)
+    if local_line != local["cli"]["local_line"]:
+        raise AssertionError(f"cli: {local_line!r} != JAX CLI {local['cli']['local_line']!r}")
+    emit({"phase": "cli", "estimate_line": est_line, "local_line": local_line, "ok": True})
 
 
 def main() -> int:
@@ -500,8 +706,11 @@ def main() -> int:
     phase_build()
     phase_edges(dev)
     phase_golden(dev)
+    phase_golden_local(dev)
+    phase_naive(dev)
     full = phase_full(dev)
-    rows = phase_kernels(dev, full)
+    local = phase_local_full(dev, full)
+    rows = phase_kernels(dev, full, local)
     phase_cli()
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})

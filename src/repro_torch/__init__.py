@@ -2,10 +2,11 @@
 
 The port of ``repro`` (JAX, TPU) to one NVIDIA H100. It imports ``torch``
 and never ``jax`` or ``repro``; its module layout mirrors ``repro`` so each
-counterpart is easy to find (``core/rank.py`` <-> ``core/rank.py``). The four
-Pallas kernels of the single-stream ingest path are hand-written CUDA C++ for
-``sm_90a`` under ``csrc/``, each beside a plain PyTorch version of the same
-function (``repro_torch.kernels``).
+counterpart is easy to find (``core/rank.py`` <-> ``core/rank.py``). The
+five Pallas kernels of the reference (four on the ingest path, one in the
+local scheme's estimate) are hand-written CUDA C++ for ``sm_90a`` under
+``csrc/``, each beside a plain PyTorch version of the same function
+(``repro_torch.kernels``).
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); a missing GPU without that request raises.

@@ -1,2 +1,2 @@
 """The estimator (counterpart of ``repro.core``): state, rankAll, the bulk
-update, the estimate and the sequential oracles."""
+update, the estimate, the schemes and the sequential oracles."""

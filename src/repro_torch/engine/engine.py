@@ -3,9 +3,9 @@
 A long-lived streaming triangle counter for one tenant's edge stream:
 
   * ``ingest(W)`` folds one batch into the estimators;
-  * ``stage_chunk`` / ``ingest_chunk`` fold K batches in one fused update,
-    with the next chunk's upload staged while the current one computes;
-  * ``estimate()`` answers the median-of-means query, cached per ``step``;
+  * ``stage_chunk`` / ``ingest_chunk`` fold K batches in one update, with
+    the next chunk's upload staged while the current one computes;
+  * ``estimate()`` answers the scheme's query, cached per ``step``;
   * ``snapshot()`` / ``restore()`` round-trip the whole engine (estimators and
     RNG cursor) through host numpy arrays, in the JAX engine's flat-dict
     format, so a snapshot from either engine restores into the other
@@ -15,9 +15,15 @@ RNG contract: batch i draws from ``fold_in(PRNGKey(seed), i)``; nothing else
 carries random state, so chunked, per-batch and restored runs are
 bit-identical to each other and to the JAX reference.
 
-This slice runs one tenant, the ``global`` scheme and insertion-only streams;
-asking for more raises ``NotImplementedError`` naming the ROADMAP item that
-brings it. The engine runs on the card unless ``device="cpu"``.
+Schemes: ``EngineConfig.scheme`` names an estimator scheme
+(``repro_torch.core.schemes``: ``global``, ``naive``, ``local``); the engine
+initialises, ingests and answers queries through it, and a snapshot carries
+the scheme's name, so restoring into an engine of another scheme raises
+``SnapshotMismatch``.
+
+The port runs one tenant and insertion-only streams; asking for more raises
+``NotImplementedError`` naming the ROADMAP item that brings it. The engine
+runs on the card unless ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -28,9 +34,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device, rng
-from repro_torch.core.bulk import bulk_update_all, bulk_update_chunk
-from repro_torch.core.estimate import estimate
-from repro_torch.core.state import EstimatorState, init_state
+from repro_torch.core.schemes import EstimatorScheme, resolve_scheme
+from repro_torch.core.state import EstimatorState
 from repro_torch.primitives.ingest import resolve_ingest_backend
 from repro_torch.primitives.search import resolve_multisearch_backend
 
@@ -40,7 +45,9 @@ _STATE_FIELDS = EstimatorState._fields
 @dataclass(frozen=True)
 class EngineConfig:
     """Static configuration. ``r``, ``batch_size`` and ``n_tenants`` go into
-    the snapshot's ``config`` record."""
+    the snapshot's ``config`` record. ``scheme_params`` is a ((name, value),
+    ...) tuple (a dict is normalised to one), e.g. ``scheme="local",
+    scheme_params={"n_vertices": 10_000, "n_pools": 8}``."""
 
     r: int  # estimators
     batch_size: int  # s: fixed ingest width (shorter batches are padded)
@@ -48,6 +55,7 @@ class EngineConfig:
     groups: int = 9  # requested median-of-means groups (see effective_groups)
     seeds: Optional[tuple[int, ...]] = None  # per-tenant RNG seeds
     scheme: str = "global"
+    scheme_params: Optional[tuple] = None
     chunk_size: int = 1  # K: batches fused per update
     window: int = 0
     decay: float = 0.0
@@ -56,6 +64,8 @@ class EngineConfig:
     multisearch: str = "auto"  # repro_torch.primitives.search.MULTISEARCH_BACKENDS
 
     def __post_init__(self):
+        if isinstance(self.scheme_params, dict):
+            object.__setattr__(self, "scheme_params", tuple(sorted(self.scheme_params.items())))
         if self.r <= 0 or self.batch_size <= 0:
             raise ValueError(f"bad config: {self}")
         if self.groups < 1:
@@ -66,15 +76,18 @@ class EngineConfig:
             raise NotImplementedError(
                 "the port runs one tenant; banks of tenants come with ROADMAP "
                 "A.10, 'Multi-tenant banks'")
-        if self.scheme != "global":
-            raise NotImplementedError(
-                f"scheme {self.scheme!r}: the port runs 'global'; other schemes "
-                "come with ROADMAP A.11, 'Schemes'")
+        self.resolved_scheme()
         if self.window or self.decay:
             raise NotImplementedError(
                 "window/decay streams come with ROADMAP A.12, 'Dynamic streams'")
         if self.seeds is not None and len(self.seeds) != self.n_tenants:
             raise ValueError(f"seeds has {len(self.seeds)} entries for {self.n_tenants} tenants")
+
+    def resolved_scheme(self) -> EstimatorScheme:
+        """The scheme instance this config names, validated against ``r``."""
+        scheme = resolve_scheme(self.scheme, self.scheme_params)
+        scheme.validate(self.r)
+        return scheme
 
     def tenant_seeds(self) -> tuple[int, ...]:
         return tuple(self.seeds) if self.seeds is not None else tuple(range(self.n_tenants))
@@ -106,12 +119,13 @@ class TriangleCountEngine:
     def __init__(self, config: EngineConfig):
         self.config = config
         self.device = resolve_device(config.device)
+        self.scheme: EstimatorScheme = config.resolved_scheme()
         self._ingest_backend = resolve_ingest_backend(config.ingest, self.device)
         self._search = resolve_multisearch_backend(config.multisearch, self.device)
         self._step = 0  # batches ingested so far: the RNG fold_in counter
         self._dyn_step = 0
         self._root_key = rng.PRNGKey(config.tenant_seeds()[0], self.device)
-        self._state = init_state(config.r, self.device)
+        self._state = self.scheme.init_state(config.r, self.device)
         self._est_cache: dict[int, np.ndarray] = {}
         self._copy_stream = (
             torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
@@ -165,7 +179,8 @@ class TriangleCountEngine:
         Wp, n = self._pad(W)
         nv = n if n_valid is None else int(np.asarray(n_valid).reshape(-1)[0])
         key = rng.fold_in(self._root_key, self._step)
-        self._state = bulk_update_all(self._state, self._upload(Wp), nv, key, self._search)
+        self._state = self.scheme.bulk_update(self._state, self._upload(Wp), nv, key,
+                                              search=self._search)
         self._step += 1
         self._dyn_step += 1
 
@@ -195,16 +210,16 @@ class TriangleCountEngine:
         return StagedChunk(Wb, nvb, int(nv.sum()), ready)
 
     def ingest_chunk(self, Ws, n_valids=None) -> None:
-        """Fold ``chunk_size`` batches in one fused update; bit-for-bit equal
-        to that many ``ingest`` calls. Accepts what ``stage_chunk`` accepts,
-        or a ``StagedChunk``."""
+        """Fold ``chunk_size`` batches in one update (the scheme's
+        ``chunk_update``); bit-for-bit equal to that many ``ingest`` calls.
+        Accepts what ``stage_chunk`` accepts, or a ``StagedChunk``."""
         c = Ws if isinstance(Ws, StagedChunk) else self.stage_chunk(Ws, n_valids)
         if c.ready is not None:
             cur = torch.cuda.current_stream(self.device)
             cur.wait_event(c.ready)
             c.Wb.record_stream(cur)
             c.nv.record_stream(cur)
-        self._state = bulk_update_chunk(
+        self._state = self.scheme.chunk_update(
             self._state, c.Wb, c.nv, self._root_key, self._step,
             backend=self._ingest_backend, search=self._search)
         K = self.config.chunk_size
@@ -247,13 +262,23 @@ class TriangleCountEngine:
 
     # -- queries -------------------------------------------------------------
     def estimate(self) -> np.ndarray:
-        """(n_tenants,) float64 median-of-means estimates, cached per step."""
+        """Estimates with a leading tenant axis, cached per step: (1,)
+        float64 for the scalar schemes (the median of means), (1,
+        n_vertices) float64 per-vertex counts for ``local``."""
         cached = self._est_cache.get(self._step)
         if cached is not None:
             return cached
-        out = np.array([float(estimate(self._state, self.config.groups))], np.float64)
+        est = self.scheme.estimate(self._state, self.config.groups,
+                                   backend=self._ingest_backend)
+        out = est.to(torch.float64).cpu().numpy().reshape((1,) + tuple(est.shape))
         self._est_cache = {self._step: out}
         return out
+
+    def estimate_tenant(self, tenant: int = 0):
+        """One tenant's estimate: a float for scalar schemes, else an array,
+        served from the per-step cache."""
+        e = self.estimate()[tenant]
+        return float(e) if np.ndim(e) == 0 else e
 
     # -- snapshot / restore --------------------------------------------------
     def snapshot(self) -> dict:
@@ -267,20 +292,24 @@ class TriangleCountEngine:
         snap["dyn_step"] = np.int64(self._dyn_step)
         snap["config"] = np.array(
             [self.config.r, self.config.batch_size, self.config.n_tenants], np.int64)
-        snap["scheme"] = np.array("global")
+        snap["scheme"] = np.array(self.scheme.name)
         return snap
 
     def restore(self, snap: dict) -> None:
         """Restore from a snapshot dict of either engine. ``r`` and
         ``n_tenants`` must match; ``batch_size`` may differ (the state does
-        not depend on it)."""
+        not depend on it). The scheme must match too; a snapshot without a
+        ``scheme`` key is ``global``."""
         got = _snapshot_config(snap)
         want = (self.config.r, self.config.batch_size, self.config.n_tenants)
         if (got[0], got[2]) != (want[0], want[2]):
             raise SnapshotMismatch(f"snapshot (r, batch_size, n_tenants)={got} != engine {want}")
         scheme = str(np.asarray(snap.get("scheme", "global")))
-        if scheme != "global":
-            raise SnapshotMismatch(f"snapshot was written by scheme {scheme!r}; this engine runs 'global'")
+        if scheme != self.scheme.name:
+            raise SnapshotMismatch(
+                f"snapshot was written by scheme {scheme!r}; this engine runs "
+                f"{self.scheme.name!r} (pass scheme={scheme!r} or use "
+                "from_snapshot, which adopts the snapshot's scheme)")
         dtypes = {"f1": torch.int32, "chi": torch.int32, "f2": torch.int32,
                   "has_f3": torch.bool, "m_seen": torch.int64}
         self._state = EstimatorState(**{
@@ -298,6 +327,10 @@ class TriangleCountEngine:
     def from_snapshot(cls, snap: dict, *, batch_size: Optional[int] = None,
                       **config_kwargs) -> "TriangleCountEngine":
         r, s, t = _snapshot_config(snap)
+        if "scheme" not in config_kwargs and "scheme" in snap:
+            # adopt the snapshot's scheme; the local scheme's params still
+            # come from the caller
+            config_kwargs["scheme"] = str(np.asarray(snap["scheme"]))
         cfg = EngineConfig(r=r, batch_size=batch_size if batch_size is not None else s,
                            n_tenants=t, **config_kwargs)
         eng = cls(cfg)

@@ -6,8 +6,8 @@ Both engines snapshot to the same flat dict of host numpy arrays: ``f1``,
 batch_size, n_tenants] and ``scheme``. Because every random draw is a
 function of (root key, step), a snapshot taken mid-stream by either engine
 continues bit-identically in the other. These functions check a snapshot
-against that format and normalise its dtypes; they need neither framework's
-arrays, only numpy.
+against that format and normalise its dtypes, and hash states and estimates
+for comparison; they need neither framework's arrays, only numpy.
 """
 from __future__ import annotations
 
@@ -58,3 +58,10 @@ def state_sha256(snap: dict) -> str:
                   ("has_f3", "u1"), ("m_seen", "<i8")):
         h.update(np.ascontiguousarray(s[k].astype(dt)).tobytes())
     return h.hexdigest()
+
+
+def estimate_sha256(est) -> str:
+    """sha256 over a (per-vertex) estimate as little-endian float64: equal
+    digests mean bit-identical estimates."""
+    return hashlib.sha256(
+        np.ascontiguousarray(np.asarray(est, dtype="<f8")).tobytes()).hexdigest()

@@ -1,10 +1,10 @@
-"""Hand-written CUDA kernels of the ingest path, each beside its plain
-PyTorch version.
+"""Hand-written CUDA kernels, each beside its plain PyTorch version.
 
   fused_ingest        kernels/fused_ingest.py  (csrc/fused_ingest.cu)
   bitonic_sort_tiles  kernels/bitonic.py       (csrc/bitonic.cu)
   segscan             kernels/segscan.py       (csrc/segscan.cu)
   multisearch_counts  kernels/multisearch.py   (csrc/multisearch.cu)
+  segment_sum         kernels/segment_sum.py   (csrc/segment_sum.cu)
 
 A wrapper launches its kernel for CUDA tensors (or raises) and runs its plain
 version for CPU tensors; ``LAUNCHES`` counts the launches on the card.

@@ -24,7 +24,7 @@ from typing import Iterable, Optional, Sequence
 
 import torch
 
-SOURCES = ("fused_ingest", "bitonic", "segscan", "multisearch")
+SOURCES = ("fused_ingest", "bitonic", "segscan", "multisearch", "segment_sum")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
@@ -36,7 +36,7 @@ NVCC_FLAGS = (
 # kernel on the card, and nowhere else (its plain version on CPU tensors and
 # its no-launch short cuts do not count).
 LAUNCHES = {name: 0 for name in ("fused_ingest", "bitonic_sort_tiles",
-                                 "segscan", "multisearch_counts")}
+                                 "segscan", "multisearch_counts", "segment_sum")}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

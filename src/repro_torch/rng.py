@@ -108,6 +108,14 @@ def uniform(key: Tensor, shape: tuple[int, ...]) -> Tensor:
     return b.to(torch.int32).view(torch.float32) - 1.0
 
 
+def uniform64(key: Tensor, shape: tuple[int, ...]) -> Tensor:
+    """``jax.random.uniform(key, shape, float64)`` on [0, 1), the default
+    dtype under x64: the top 52 bits of a 64-bit draw as the mantissa of a
+    float in [1, 2), minus 1 (the shift is logical, hence the mask)."""
+    b = ((bits64(key, shape) >> 12) & ((1 << 52) - 1)) | 0x3FF0000000000000
+    return b.view(torch.float64) - 1.0
+
+
 def span_offset32(hi: Tensor, lo: Tensor, span: Tensor) -> Tensor:
     """jax's ``randint`` span arithmetic in uint32: ``((hi % span) * m +
     lo % span) % span`` with ``m = (2**16 % span)**2 % span``, where the

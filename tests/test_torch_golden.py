@@ -1,11 +1,19 @@
-"""The golden file: the JAX reference's final state for one small chunked
-stream with a ragged tail, which the port must reproduce bit for bit.
+"""The golden files: the JAX reference's results on small streams, which
+the port must reproduce bit for bit.
 
-``src/repro_torch/golden/stream_small.json`` records the sha256 of the JAX
-engine's final estimator state and its estimate; ``chip_smoke.py`` holds the
-port's CUDA kernel path to it on a machine without JAX. These tests
-regenerate it from the JAX package, check the committed copy, and hold the
-port's CPU paths to it. Rewrite the file with
+  ``stream_small.json``  the global scheme on a chunked stream with a ragged
+                         tail: the final state's sha256, the estimate, and
+                         the CLI's ``estimate:`` line;
+  ``local_small.json``   the local scheme (4 pools) on the same stream: the
+                         state's sha256, the per-vertex estimate's sha256 and
+                         ``sum/3``, and the CLI's ``local[tenant 0]`` line;
+  ``naive_small.json``   the naive scheme on three batches (one K = 2 chunk
+                         and a ragged batch): the state's sha256.
+
+``chip_smoke.py`` holds the port's CUDA kernel path to them on a machine
+without JAX. These tests regenerate them from the JAX package, check the
+committed copies, and hold the port's CPU paths to them. Rewrite the files
+with
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_golden.py --write
 """
@@ -31,9 +39,11 @@ from repro.engine import run_stream as jax_run_stream  # noqa: E402
 
 from repro_torch.data.graph_stream import batches, planted_triangle_stream  # noqa: E402
 from repro_torch.engine import EngineConfig, TriangleCountEngine, run_stream  # noqa: E402
-from repro_torch.interop import state_sha256  # noqa: E402
+from repro_torch.interop import estimate_sha256, state_sha256  # noqa: E402
 
 GOLDEN = ROOT / "src" / "repro_torch" / "golden" / "stream_small.json"
+LOCAL_GOLDEN = GOLDEN.with_name("local_small.json")
+NAIVE_GOLDEN = GOLDEN.with_name("naive_small.json")
 # planted graph: 150 triangles + 2000 noise edges = 2450 edges in batches of
 # 256 -> 9 full batches and a ragged one of 146; with K = 4 that is two
 # chunks, then one full and one ragged batch on the per-batch path
@@ -42,6 +52,11 @@ ENGINE = {"r": 4096, "batch_size": 256, "chunk_size": 4, "groups": 9, "seed": 3}
 CLI_ARGS = ["--graph", "planted", "--triangles", "300", "--edges", "6000",
             "--nodes", "9000", "--estimators", "8192", "--batch", "512",
             "--chunk", "4", "--seed", "1"]
+LOCAL = {"n_pools": 4, "n_vertices": STREAM["vertices"]}
+LOCAL_CLI_ARGS = [*CLI_ARGS, "--scheme", "local", "--pools", "4"]
+# the naive scheme is O(r * s) sequential per batch: its first 700 edges,
+# batches of 256 -> one K = 2 chunk and a ragged batch of 188
+NAIVE = {"edges": 700, "chunk_size": 2}
 
 
 def jax_golden() -> dict:
@@ -61,23 +76,62 @@ def jax_golden() -> dict:
     }
 
 
-def _cli_estimate_line(module: str, extra=()) -> str:
+def _jax_scheme_run(scheme: str, params, chunk_size: int, n_edges=None):
+    edges, _ = jax_planted(STREAM["triangles"], STREAM["noise_edges"],
+                           STREAM["vertices"], seed=STREAM["seed"])
+    eng = JaxEngine(JaxConfig(r=ENGINE["r"], batch_size=ENGINE["batch_size"],
+                              chunk_size=chunk_size, groups=ENGINE["groups"],
+                              seeds=(ENGINE["seed"],), scheme=scheme, scheme_params=params))
+    jax_run_stream(eng, jax_batches(edges[:n_edges], ENGINE["batch_size"]))
+    return eng
+
+
+def jax_local_golden() -> dict:
+    """The local-scheme golden record, computed by the JAX reference."""
+    eng = _jax_scheme_run("local", LOCAL, ENGINE["chunk_size"])
+    est = np.asarray(eng.estimate()[0])
+    return {
+        "written_by": "repro (JAX) engine via tests/test_torch_golden.py",
+        "stream": STREAM, "engine": ENGINE, "scheme": "local", "scheme_params": LOCAL,
+        "step": int(eng.snapshot()["step"]), "state_sha256": state_sha256(eng.snapshot()),
+        "estimate_sha256": estimate_sha256(est), "sum3": float(est.sum()) / 3,
+    }
+
+
+def jax_naive_golden() -> dict:
+    """The naive-scheme golden record, computed by the JAX reference."""
+    eng = _jax_scheme_run("naive", None, NAIVE["chunk_size"], NAIVE["edges"])
+    return {
+        "written_by": "repro (JAX) engine via tests/test_torch_golden.py",
+        "stream": STREAM, "engine": {**ENGINE, "chunk_size": NAIVE["chunk_size"]},
+        "edges": NAIVE["edges"], "scheme": "naive", "step": int(eng.snapshot()["step"]),
+        "state_sha256": state_sha256(eng.snapshot()), "estimate": float(eng.estimate()[0]),
+    }
+
+
+def _cli_line(module: str, args, prefix: str, extra=()) -> str:
     env = {"PYTHONPATH": str(ROOT / "src"), "JAX_PLATFORMS": "cpu", "PATH": "/usr/bin:/bin"}
     out = subprocess.run(
-        [sys.executable, "-m", module, *CLI_ARGS, *extra], cwd=ROOT, env=env,
+        [sys.executable, "-m", module, *args, *extra], cwd=ROOT, env=env,
         capture_output=True, text=True, timeout=300, check=True).stdout
-    return next(line for line in out.splitlines() if line.startswith("estimate:"))
+    return next(line for line in out.splitlines() if line.startswith(prefix))
 
 
-def port_run(device: str = "cpu", ingest: str = "auto", multisearch: str = "auto"):
-    """The golden stream through the port's engine; returns the engine."""
+def _cli_estimate_line(module: str, extra=()) -> str:
+    return _cli_line(module, CLI_ARGS, "estimate:", extra)
+
+
+def port_run(device: str = "cpu", ingest: str = "auto", multisearch: str = "auto",
+             scheme: str = "global", params=None, chunk_size=None, n_edges=None):
+    """A golden stream through the port's engine; returns the engine."""
     edges, _ = planted_triangle_stream(STREAM["triangles"], STREAM["noise_edges"],
                                        STREAM["vertices"], seed=STREAM["seed"])
     eng = TriangleCountEngine(EngineConfig(
-        r=ENGINE["r"], batch_size=ENGINE["batch_size"], chunk_size=ENGINE["chunk_size"],
-        groups=ENGINE["groups"], seeds=(ENGINE["seed"],), device=device,
-        ingest=ingest, multisearch=multisearch))
-    run_stream(eng, batches(edges, ENGINE["batch_size"]))
+        r=ENGINE["r"], batch_size=ENGINE["batch_size"],
+        chunk_size=chunk_size or ENGINE["chunk_size"], groups=ENGINE["groups"],
+        seeds=(ENGINE["seed"],), device=device, ingest=ingest, multisearch=multisearch,
+        scheme=scheme, scheme_params=params))
+    run_stream(eng, batches(edges[:n_edges], ENGINE["batch_size"]))
     return eng
 
 
@@ -110,6 +164,44 @@ def test_cli_estimate_line_matches_jax_cli(golden):
     assert golden["cli"] == {"args": CLI_ARGS, "estimate_line": jax_line}
 
 
+@pytest.fixture(scope="module")
+def local_golden():
+    return json.loads(LOCAL_GOLDEN.read_text())
+
+
+def test_committed_local_and_naive_golden_match_jax(local_golden):
+    fresh = jax_local_golden()
+    for k in ("step", "state_sha256", "estimate_sha256", "sum3"):
+        assert local_golden[k] == fresh[k], k
+    naive, fresh = json.loads(NAIVE_GOLDEN.read_text()), jax_naive_golden()
+    for k in ("step", "state_sha256", "estimate"):
+        assert naive[k] == fresh[k], k
+
+
+@pytest.mark.parametrize("ingest,multisearch", [("scan", "eager"), ("kernel", "kernel")])
+def test_port_reproduces_local_golden(local_golden, ingest, multisearch):
+    eng = port_run("cpu", ingest, multisearch, "local", LOCAL)
+    est = eng.estimate()[0]
+    assert eng.step == local_golden["step"]
+    assert state_sha256(eng.snapshot()) == local_golden["state_sha256"]
+    assert estimate_sha256(est) == local_golden["estimate_sha256"]
+    assert float(est.sum()) / 3 == local_golden["sum3"]
+
+
+def test_port_reproduces_naive_golden():
+    naive = json.loads(NAIVE_GOLDEN.read_text())
+    eng = port_run("cpu", scheme="naive", chunk_size=NAIVE["chunk_size"], n_edges=NAIVE["edges"])
+    assert eng.step == naive["step"] == 3
+    assert state_sha256(eng.snapshot()) == naive["state_sha256"]
+    assert float(eng.estimate()[0]) == naive["estimate"]
+
+
+def test_cli_local_line_matches_golden(local_golden):
+    port_line = _cli_line("repro_torch.launch.stream", LOCAL_CLI_ARGS, "local[tenant 0] ",
+                          ["--device", "cpu"])
+    assert local_golden["cli"] == {"args": LOCAL_CLI_ARGS, "local_line": port_line}
+
+
 if __name__ == "__main__":
     if "--write" not in sys.argv:
         sys.exit(__doc__)
@@ -117,4 +209,11 @@ if __name__ == "__main__":
     rec["cli"] = {"args": CLI_ARGS,
                   "estimate_line": _cli_estimate_line("repro.launch.stream", ["--ckpt-every", "0"])}
     GOLDEN.write_text(json.dumps(rec, indent=1) + "\n")
-    print(json.dumps(rec, indent=1))
+    local = jax_local_golden()
+    local["cli"] = {"args": LOCAL_CLI_ARGS,
+                    "local_line": _cli_line("repro.launch.stream", LOCAL_CLI_ARGS,
+                                            "local[tenant 0] ", ["--ckpt-every", "0"])}
+    LOCAL_GOLDEN.write_text(json.dumps(local, indent=1) + "\n")
+    NAIVE_GOLDEN.write_text(json.dumps(jax_naive_golden(), indent=1) + "\n")
+    for path in (GOLDEN, LOCAL_GOLDEN, NAIVE_GOLDEN):
+        print(path.read_text())

@@ -26,6 +26,7 @@ from repro_torch.kernels import LAUNCHES, _build, ref  # noqa: E402
 from repro_torch.kernels.bitonic import bitonic_sort_tiles, bitonic_sort_tiles_plain  # noqa: E402
 from repro_torch.kernels.fused_ingest import fused_ingest, fused_ingest_plain  # noqa: E402
 from repro_torch.kernels.multisearch import multisearch_counts, multisearch_counts_plain  # noqa: E402
+from repro_torch.kernels.segment_sum import segment_sum, segment_sum_plain  # noqa: E402
 from repro_torch.kernels.segscan import segscan, segscan_plain  # noqa: E402
 
 INF64 = np.iinfo(np.int64).max
@@ -92,6 +93,35 @@ def test_fused_ingest_plain_vs_jax_ref(r, s, K):
         np.testing.assert_array_equal(getattr(port_ref, f).numpy(), np.asarray(getattr(want, f)))
 
 
+def _segment_sum_families(n, m, d, seed):
+    """The oracle harness's segment_sum families (integer-valued float64
+    values; ids in range, with dropped ids on both sides, all in one bin)."""
+    g = np.random.default_rng(seed)
+    vals = g.integers(-3, 9, (n, d)).astype(np.float64)
+    ids = {"random": g.integers(0, max(m, 1), n),
+           "with_dropped": g.integers(-2, max(m, 1) + 3, n),
+           "all_one_segment": np.zeros(n, np.int64)}
+    return vals, {k: v.astype(np.int32) for k, v in ids.items()}
+
+
+@pytest.mark.parametrize("d", [1, 2])
+@pytest.mark.parametrize("n,m", [(0, 8), (8, 0), (63, 31), (64, 32), (65, 33), (129, 65)])
+def test_segment_sum_plain_vs_jax(n, m, d):
+    """The wrapper on CPU tensors (its plain version) against the JAX
+    Pallas kernel in interpret mode, at the oracle harness's blocks (values
+    64, segments 32, so n and m straddle both), and against both oracles."""
+    vals, fams = _segment_sum_families(n, m, d, seed=41 + n + m)
+    for name, ids in fams.items():
+        want = np.asarray(ops.segment_sum_op(jnp.asarray(vals), jnp.asarray(ids), m,
+                                             v_block=64, out_block=32))
+        got = segment_sum(T(vals), T(ids), m)
+        assert got.shape == (m, d) and got.dtype == torch.float64
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
+        np.testing.assert_array_equal(
+            np.asarray(kref.segment_sum_ref(jnp.asarray(vals), jnp.asarray(ids), m)), want)
+        np.testing.assert_array_equal(ref.segment_sum_ref(T(vals), T(ids), m).numpy(), want)
+
+
 def test_plain_versions_vs_pallas_interpret():
     """Each plain version once against the Pallas kernel itself, run in
     interpret mode at a tiny shape."""
@@ -131,6 +161,7 @@ def test_wrappers_take_plain_version_only_on_cpu():
     multisearch_counts(k, k)
     segscan(torch.ones(10, dtype=torch.int32), torch.zeros(10, dtype=torch.bool))
     bitonic_sort_tiles(k.flip(0).contiguous(), torch.zeros(10, dtype=torch.int32), 16)
+    segment_sum(torch.ones(10, 1, dtype=torch.float64), torch.zeros(10, dtype=torch.int32), 3)
     assert LAUNCHES == before  # no launch counted off the card
 
 
@@ -145,7 +176,7 @@ def test_wrapper_argument_checks():
 
 def test_build_is_keyed_by_source_and_needs_nvcc(monkeypatch, tmp_path):
     names = {_build.library_path(n).name for n in _build.SOURCES}
-    assert len(names) == 4 and all(n.startswith("lib") and n.endswith(".so") for n in names)
+    assert len(names) == 5 and all(n.startswith("lib") and n.endswith(".so") for n in names)
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     (tmp_path / "segscan.cu").write_text("// one\n")
     one = _build.library_path("segscan")
@@ -206,3 +237,14 @@ def test_cuda_fused_ingest(cuda, r, s, K):
     for a, b in zip(fused_ingest(st.f1, st.chi, st.f2, st.has_f3, *args),
                     fused_ingest_plain(st.f1, st.chi, st.f2, st.has_f3, *args)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 2])
+@pytest.mark.parametrize("n,m", [(0, 8), (8, 0), (255, 31), (257, 1000), (1_000_003, 4096)])
+def test_cuda_segment_sum(cuda, n, m, d):
+    vals, fams = _segment_sum_families(n, m, d, seed=n + m)
+    v = T(vals).to(cuda)
+    for ids in fams.values():
+        i = T(ids).to(cuda)
+        assert torch.equal(segment_sum(v, i, m), segment_sum_plain(v, i, m))
