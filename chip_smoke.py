@@ -10,9 +10,14 @@ Phases, each of which raises on failure (nothing is caught):
   build      nvcc builds the five kernels from csrc/, in parallel;
   edges      each kernel against its plain version on the edge cases of the
              JAX package's oracle harness (tile sizes +-1, n = 0, q = 0,
-             all-equal, duplicate-heavy and INF64 keys, segments that cross
-             CTA tiles; for segment_sum dropped ids, every row in one bin,
-             n = 0, m = 0, d = 1 and 2), equal under each kernel's contract;
+             all-equal, duplicate-heavy, negative and INF64 keys, segments
+             that cross CTA tiles; for the tile sort tiles below, at and 1-5
+             merge passes above its 4096-entry block, ragged n, sorted and
+             reversed input; for multisearch n below, at and above its
+             8192-key sample, equal runs longer than the sample spacing,
+             queries below, above and equal to every key and INT64 max; for
+             segment_sum dropped ids, every row in one bin, n = 0, m = 0,
+             d = 1 and 2), equal under each kernel's contract;
   golden     the kernel path on a small chunked stream with a ragged tail
              reproduces the JAX reference's final-state sha256 and estimate
              (src/repro_torch/golden/stream_small.json, written by JAX);
@@ -28,8 +33,9 @@ Phases, each of which raises on failure (nothing is caught):
              that every kernel was launched, that the state is bit-identical
              to the plain path (scan ingest, torch.searchsorted), that a
              snapshot after chunk 1 restored into a fresh engine finishes
-             with the same state, and that rel.err <= 5%; it also times the
-             default batch validation on the host;
+             with the same state, and that rel.err <= 5%; it also times a
+             second run of the stream in a fresh engine, and the default
+             batch validation on the host;
   local_full the same stream under the local scheme (8 pools, 2^22
              vertices) through TriangleCountEngine + run_stream: per-batch
              ingest (multisearch_counts) and the per-vertex estimate
@@ -42,8 +48,12 @@ Phases, each of which raises on failure (nothing is caught):
   kernels    each kernel and its plain version at the main path's full-size
              shapes: equal, and timed with CUDA events beside its bound and,
              where one PyTorch call computes the same function, that call;
-             then where one chunk's device time goes (randomness, structure
-             build, fused loop) and the ragged tail batch's time;
+             the tile sort at both of its shapes (arc and edge tiles) and
+             multisearch at all three (Q1, Q2, step 3); for every kernel and
+             shape the CUDA launches of one wrapper call, as its C entry
+             reports them; then where one chunk's device time goes
+             (randomness, structure build, fused loop) and the ragged tail
+             batch's time;
   cli        python -m repro_torch.launch.stream prints the golden CLI lines
              (global and local).
 
@@ -201,15 +211,36 @@ def phase_build() -> None:
 
 
 def key_families(n: int, seed: int) -> dict:
-    """The adversarial key families of the JAX package's oracle harness."""
+    """The adversarial key families of the JAX package's oracle harness, and
+    negative keys (-1, as pack2 makes for empty slots)."""
     rng = np.random.default_rng(seed)
     fams = {
         "random": rng.integers(0, max(4 * n, 4), n),
         "duplicate_heavy": rng.integers(0, max(n // 8, 2), n),
         "all_equal": np.full(n, 7),
         "inf_sentinels": np.where(rng.random(n) < 0.25, INF64, rng.integers(0, max(n, 2), n)),
+        "negative": np.where(rng.random(n) < 0.5, -1, rng.integers(-3, max(n, 2), n)),
     }
     return {k: v.astype(np.int64) for k, v in fams.items()}
+
+
+def sort_families(n: int, seed: int) -> dict:
+    """The key families, and input already sorted and reversed."""
+    return {**key_families(n, seed), "sorted": np.arange(n, dtype=np.int64),
+            "reversed": np.arange(n, 0, -1, dtype=np.int64)}
+
+
+def search_queries(keys: np.ndarray, q: int, seed: int) -> np.ndarray:
+    """q queries: random ones around the keys, then (as far as q reaches,
+    from the end) the first and last keys below INT64 max, one below every
+    key, one above them, 0 and INT64 max."""
+    n = len(keys)
+    g = np.random.default_rng(seed)
+    lo = int(keys[0]) if n else 0
+    hi = int(keys[keys < INF64].max()) if (keys < INF64).any() else 0
+    edge = [lo, hi, lo - 1, hi + 1, 0, INF64]
+    return np.concatenate([g.integers(-5, max(4 * n, 8), max(q - len(edge), 0)),
+                           edge])[-q:].astype(np.int64) if q else np.zeros(0, np.int64)
 
 
 def phase_edges(dev) -> None:
@@ -225,13 +256,18 @@ def phase_edges(dev) -> None:
     from repro_torch.kernels.segscan import segscan
 
     cases = 0
-    for n, q in itertools.product((0, 1, 255, 256, 257, 4097), (0, 1, 33, 257)):
-        for fam, keys in key_families(n, n + q).items():
-            g = np.random.default_rng(q)
-            qs = np.concatenate([g.integers(-5, max(4 * n, 8), max(q - 2, 0)),
-                                 np.array([INF64] * min(q, 1) + [0] * min(max(q - 1, 0), 1))])[:q]
-            k = torch.from_numpy(np.sort(keys)).to(dev)
-            qt = torch.from_numpy(qs.astype(np.int64)).to(dev)
+    # multisearch: n below, at and above the shared-memory sample (8192
+    # keys), n not a power of two, and equal runs (duplicate_heavy, all_equal,
+    # the long runs) longer than the sample spacing
+    for n, q in itertools.chain(
+            itertools.product((0, 1, 255, 256, 257, 4097), (0, 1, 33, 257)),
+            itertools.product((8191, 8192, 8193, 3 * 8192 + 5, 100_003), (7, 5000))):
+        fams = key_families(n, n + q)
+        fams["long_runs"] = np.random.default_rng(n).integers(0, 40, n) * 1000
+        for fam, keys in fams.items():
+            keys = np.sort(keys)
+            k = torch.from_numpy(keys).to(dev)
+            qt = torch.from_numpy(search_queries(keys, q, q + n)).to(dev)
             lt, le = multisearch_counts(k, qt)
             elt, ele = ref.multisearch_counts_ref(k, qt)
             require_equal(f"multisearch lt n={n} q={q} {fam}", lt, elt)
@@ -245,10 +281,15 @@ def phase_edges(dev) -> None:
             ft = torch.from_numpy(f).to(dev)
             require_equal(f"segscan n={n} {fam}", segscan(v, ft), ref.segscan_ref(v, ft))
             cases += 1
-    for tile, sizes in ((2, (5,)), (16, (15, 16, 17)), (4096, (4095, 4096, 4097)),
-                        (8192, (8191, 8192, 8193, 3 * 8192)), (32768, (2 * 32768 + 1,))):
+    # the tile sort: tiles below its block (4096 entries), many to a block;
+    # at the block; and 1, 2, 3 and 5 merge passes above it; ragged n
+    for tile, sizes in ((1, (3, 9000)), (2, (5, 20_001)), (16, (15, 16, 17, 3 * 8192 + 16)),
+                        (64, (50_000,)), (2048, (2048, 3 * 2048 + 1)),
+                        (4096, (4095, 4096, 4097, 5 * 4096)),
+                        (8192, (8191, 8192, 8193, 3 * 8192)), (16384, (16384, 3 * 16384 - 7)),
+                        (32768, (2 * 32768 + 1,)), (2**17, (2**17, 2 * 2**17 + 3))):
         for n in sizes:
-            for fam, keys in key_families(n, tile + n).items():
+            for fam, keys in sort_families(n, tile + n).items():
                 kt = torch.from_numpy(keys).to(dev)
                 vt = torch.arange(n, dtype=torch.int32, device=dev)
                 check_tile_sort(f"bitonic tile={tile} n={n} {fam}", kt, vt, tile,
@@ -377,7 +418,7 @@ def phase_full(dev) -> dict:
     from repro_torch.data.graph_stream import batches
     from repro_torch.engine import EngineConfig, TriangleCountEngine, run_stream
     from repro_torch.interop import state_sha256
-    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import CUDA_LAUNCHES, LAUNCHES, reset_launches
 
     edges, tau = planted_full(FULL["seed"])
     s, K = FULL["s"], FULL["K"]
@@ -392,8 +433,11 @@ def phase_full(dev) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
     rep = run_stream(eng, batches(edges, s))
-    launches = dict(LAUNCHES)
+    launches, cuda_launches = dict(LAUNCHES), dict(CUDA_LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
+    # the same stream again in a fresh engine: a first run that is slow on
+    # the host shows apart from a later one
+    rep_again = run_stream(engine("kernel", "kernel"), batches(edges, s))
     missing = [k for k in ("fused_ingest", "bitonic_sort_tiles", "segscan",
                            "multisearch_counts") if launches[k] == 0]
     if missing:
@@ -438,8 +482,9 @@ def phase_full(dev) -> dict:
 
     emit({"phase": "full", "r": FULL["r"], "s": s, "K": K, "m": int(len(edges)),
           "tau": tau, "estimate": est, "rel_err": rel, "edges_per_s": rep.edges_per_s,
-          "seconds": rep.seconds, "plain_path_seconds": plain_s,
-          "peak_device_bytes": peak, "launches": launches, "state_sha256": digest,
+          "seconds": rep.seconds, "edges_per_s_second_run": rep_again.edges_per_s,
+          "plain_path_seconds": plain_s, "peak_device_bytes": peak, "launches": launches,
+          "cuda_launches": cuda_launches, "state_sha256": digest,
           "plain_path_equal": True, "restore_equal": True,
           "validate_ms_per_batch": validate_ms})
     return {"launches": launches, "state": eng.state, "edges": edges, "tau": tau}
@@ -451,7 +496,7 @@ def phase_local_full(dev, full: dict) -> dict:
     from repro_torch.data.graph_stream import batches
     from repro_torch.engine import EngineConfig, TriangleCountEngine, run_stream
     from repro_torch.interop import state_sha256
-    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import CUDA_LAUNCHES, LAUNCHES, reset_launches
 
     edges, tau = full["edges"], full["tau"]
     s, K, V = FULL["s"], FULL["K"], FULL["vertices"]
@@ -471,7 +516,7 @@ def phase_local_full(dev, full: dict) -> dict:
     t0 = time.perf_counter()
     est = eng.estimate()[0]
     estimate_s = time.perf_counter() - t0
-    launches = dict(LAUNCHES)
+    launches, cuda_launches = dict(LAUNCHES), dict(CUDA_LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
     missing = [k for k in ("multisearch_counts", "segment_sum") if launches[k] == 0]
     if missing:
@@ -521,8 +566,9 @@ def phase_local_full(dev, full: dict) -> dict:
           "n_vertices": V, "m": int(len(edges)), "tau": tau, "sum3": sum3, "rel_err": rel,
           "l1_err": l1, "edges_per_s": rep.edges_per_s, "seconds": rep.seconds,
           "estimate_seconds": estimate_s, "ckpt_cut_run_seconds": cut_s,
-          "peak_device_bytes": peak, "launches": launches, "state_sha256": digest,
-          "plain_path_equal": True, "restore_equal": True, "ckpt_resume_equal": True})
+          "peak_device_bytes": peak, "launches": launches, "cuda_launches": cuda_launches,
+          "state_sha256": digest, "plain_path_equal": True, "restore_equal": True,
+          "ckpt_resume_equal": True})
     return {"launches": launches, "state": eng.state, "scheme": eng.scheme}
 
 
@@ -540,6 +586,7 @@ def phase_kernels(dev, full: dict, local: dict) -> list:
     )
     from repro_torch.core.rank import INF64 as KEY_PAD
     from repro_torch.core.rank import _next_pow2, rank_all_chunk
+    from repro_torch.kernels import CUDA_LAUNCHES, _build
     from repro_torch.kernels.bitonic import bitonic_sort_tiles, bitonic_sort_tiles_plain
     from repro_torch.kernels.fused_ingest import fused_ingest, fused_ingest_plain
     from repro_torch.kernels.multisearch import multisearch_counts, multisearch_counts_plain
@@ -557,13 +604,31 @@ def phase_kernels(dev, full: dict, local: dict) -> list:
     key_desc, key_rank, src, dst, pos, ekey, epos = args[:7]
     rows = []
 
-    def row(name, err, ms, plain_ms, lib_ms, nb, ops, ops_per_s=INT32_OPS_PER_S, path=full):
+    def per_call(name, fn) -> int:
+        """The CUDA kernels one wrapper call queues, as its C entry reports
+        them: the count is zeroed just before the call and read after it."""
+        CUDA_LAUNCHES[name] = 0
+        fn()
+        return CUDA_LAUNCHES[name]
+
+    def row(name, err, ms, plain_ms, lib_ms, nb, ops, fn, ops_per_s=INT32_OPS_PER_S, path=full):
         b_ms, b_by = bound(nb, ops, ops_per_s)
         src_path, replaces = KERNELS[name]
         rows.append({"name": name, "route": "cuda", "source": src_path, "replaces": replaces,
                      "launches": path["launches"][name], "max_abs_err": err, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": lib_ms})
+                     "library_ms": lib_ms, "launches_per_call": per_call(name, fn)})
+
+    def shape(label, name, fn, plain, library, nb, ops):
+        """One shape a kernel runs at on the path: its CUDA launches per
+        wrapper call and its times, the kernel timed before and after its
+        library call."""
+        b_ms, b_by = bound(nb, ops)
+        ms = time_ms(fn, reps=20)
+        lib_ms = time_ms(library, reps=20)
+        return {"shape": label, "launches_per_call": per_call(name, fn), "ms": ms,
+                "ms_after_library": time_ms(fn, reps=20), "plain_ms": time_ms(plain),
+                "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
 
     # fused_ingest: one K-batch chunk of the full-size stream over the final state
     st = (state.f1, state.chi, state.f2, state.has_f3)
@@ -575,29 +640,50 @@ def phase_kernels(dev, full: dict, local: dict) -> list:
     depth = 6 * math.ceil(math.log2(2 * s + 1))
     row("fused_ingest", err, time_ms(lambda: fused_ingest(*st, *args), reps=5),
         time_ms(lambda: fused_ingest_plain(*st, *args), reps=2, warmup=1), None,
-        nbytes(*st, *args) + nbytes(*st), 2 * r * K * (depth + 40))
+        nbytes(*st, *args) + nbytes(*st), 2 * r * K * (depth + 40),
+        lambda: fused_ingest(*st, *args))
 
-    # bitonic_sort_tiles: the arc tiles of that chunk, as rank_all_chunk pads them
-    tile = _next_pow2(2 * s)
+    # bitonic_sort_tiles: the arc tiles of that chunk (K tiles of 2^21) and
+    # its edge tiles (K tiles of 2^20), as rank_all_chunk pads them
+    block = _build.load("bitonic", "bitonic_sort_block", [])()
+    tile, tile_e = _next_pow2(2 * s), _next_pow2(s)
     kd = pack2(torch.cat([Ws[:, :, 0], Ws[:, :, 1]], 1),
                (s - 1) - torch.arange(s, device=dev, dtype=torch.int32).repeat(2)[None, :])
     kd_p = torch.full((K, tile), KEY_PAD, dtype=torch.int64, device=dev)
     kd_p[:, : 2 * s] = kd
     arc_p = torch.zeros((K, tile), dtype=torch.int32, device=dev)
     arc_p[:, : 2 * s] = torch.arange(2 * s, dtype=torch.int32, device=dev)
-    kf, af = kd_p.view(-1), arc_p.view(-1)
-    err = check_tile_sort("bitonic full", kf, af, tile, bitonic_sort_tiles(kf, af, tile),
-                          bitonic_sort_tiles_plain(kf, af, tile))
-    n = kf.numel()
-    stages = int(math.log2(tile))
+    ek_p = torch.full((K, tile_e), KEY_PAD, dtype=torch.int64, device=dev)
+    ek_p[:, :s] = pack2(torch.minimum(Ws[:, :, 0], Ws[:, :, 1]),
+                        torch.maximum(Ws[:, :, 0], Ws[:, :, 1]))
+    ep_p = torch.zeros((K, tile_e), dtype=torch.int32, device=dev)
+    ep_p[:, :s] = torch.arange(s, dtype=torch.int32, device=dev)
+    sort_shapes, err = [], 0.0
+    for label, kp, vp, t in ((f"{K} tiles of {tile} (arcs)", kd_p, arc_p, tile),
+                             (f"{K} tiles of {tile_e} (edges)", ek_p, ep_p, tile_e)):
+        kf, vf = kp.view(-1), vp.view(-1)
+        err = max(err, check_tile_sort(f"bitonic full tile={t}", kf, vf, t,
+                                       bitonic_sort_tiles(kf, vf, t),
+                                       bitonic_sort_tiles_plain(kf, vf, t)))
 
-    def library_tile_sort():  # keys and payloads, as the kernel returns them
-        keys, order = torch.sort(kd_p, dim=1)
-        return keys, torch.gather(arc_p, 1, order)
+        def library_tile_sort(kp=kp, vp=vp):  # keys and payloads, as the kernel returns them
+            keys, order = torch.sort(kp, dim=1)
+            return keys, torch.gather(vp, 1, order)
 
-    row("bitonic_sort_tiles", err, time_ms(lambda: bitonic_sort_tiles(kf, af, tile)),
-        time_ms(lambda: bitonic_sort_tiles_plain(kf, af, tile)), time_ms(library_tile_sort),
-        2 * nbytes(kf, af), 2 * (n // 2) * stages * (stages + 1) // 2)
+        # a comparison sort's least work: log2(tile) int64 compares an entry
+        sort_shapes.append(shape(label, "bitonic_sort_tiles",
+                                 lambda kf=kf, vf=vf, t=t: bitonic_sort_tiles(kf, vf, t),
+                                 lambda kf=kf, vf=vf, t=t: bitonic_sort_tiles_plain(kf, vf, t),
+                                 library_tile_sort, 2 * nbytes(kf, vf),
+                                 2 * kf.numel() * int(math.log2(t))))
+    # the block sort alone: the arc tiles sorted in tiles of one block
+    sort_shapes[0]["block_sort_ms"] = time_ms(lambda: bitonic_sort_tiles(kd_p.view(-1), arc_p.view(-1),
+                                                                          block), reps=20)
+    main = sort_shapes[0]
+    row("bitonic_sort_tiles", err, main["ms"], main["plain_ms"], main["library_ms"],
+        2 * nbytes(kd_p, arc_p), 2 * kd_p.numel() * int(math.log2(tile)),
+        lambda: bitonic_sort_tiles(kd_p.view(-1), arc_p.view(-1), tile))
+    rows[-1]["shapes"] = sort_shapes
 
     # segscan: Lemma 4.3 ranks over the chunk's sorted arcs
     ones = torch.ones(K * 2 * s, dtype=torch.int32, device=dev)
@@ -606,7 +692,7 @@ def phase_kernels(dev, full: dict, local: dict) -> list:
     require_equal("segscan full", got, want)
     row("segscan", max_abs(got, want), time_ms(lambda: segscan(ones, flags)),
         time_ms(lambda: segscan_plain(ones, flags)), None,
-        nbytes(ones, flags) + nbytes(ones), 2 * ones.numel())
+        nbytes(ones, flags) + nbytes(ones), 2 * ones.numel(), lambda: segscan(ones, flags))
 
     # multisearch_counts: the per-batch path's three searches (Q1 over
     # key_desc, Q2 over key_rank, step 3 over ekey); timed at Q1, the largest
@@ -615,18 +701,26 @@ def phase_kernels(dev, full: dict, local: dict) -> list:
     q1 = _q1_queries(s, state.f1[:, 0], state.f1[:, 1], f1b)
     q2 = pack2(state.f1[:, 0], torch.clamp(state.chi, min=0))
     q3 = _closing_query(state.f1, state.f2)[1]
-    err = 0.0
+    err, search_shapes = 0.0, []
     for name, keys, q in (("q1", kd0, q1), ("q2", kr0, q2), ("step3", ek0, q3)):
         got, want = multisearch_counts(keys, q), multisearch_counts_plain(keys, q)
         for side, a, b in zip(("lt", "le"), got, want):
             require_equal(f"multisearch {name} {side}", a, b)
             err = max(err, max_abs(a, b))
+        depth = math.ceil(math.log2(keys.numel() + 1))
+        search_shapes.append(shape(
+            f"{name}: {q.numel()} queries into {keys.numel()} keys", "multisearch_counts",
+            lambda keys=keys, q=q: multisearch_counts(keys, q),
+            lambda keys=keys, q=q: multisearch_counts_plain(keys, q),
+            lambda keys=keys, q=q: (torch.searchsorted(keys, q, side="left", out_int32=True),
+                                    torch.searchsorted(keys, q, side="right", out_int32=True)),
+            nbytes(keys, q) + 2 * 4 * q.numel(), 2 * 2 * q.numel() * depth))
+    main = search_shapes[0]
     depth = math.ceil(math.log2(kd0.numel() + 1))
-    row("multisearch_counts", err, time_ms(lambda: multisearch_counts(kd0, q1)),
-        time_ms(lambda: multisearch_counts_plain(kd0, q1)),
-        time_ms(lambda: (torch.searchsorted(kd0, q1, side="left", out_int32=True),
-                         torch.searchsorted(kd0, q1, side="right", out_int32=True))),
-        nbytes(kd0, q1) + 2 * 4 * q1.numel(), 2 * 2 * q1.numel() * depth)
+    row("multisearch_counts", err, main["ms"], main["plain_ms"], main["library_ms"],
+        nbytes(kd0, q1) + 2 * 4 * q1.numel(), 2 * 2 * q1.numel() * depth,
+        lambda: multisearch_counts(kd0, q1))
+    rows[-1]["shapes"] = search_shapes
 
     # segment_sum: the local scheme's attribution scatter over the local
     # run's final state, 3r rows into n_vertices bins
@@ -641,8 +735,12 @@ def phase_kernels(dev, full: dict, local: dict) -> list:
         time_ms(lambda: segment_sum_plain(vals, ids, m)),
         time_ms(lambda: torch.zeros((m, 1), dtype=torch.float64, device=dev).index_add_(
             0, ids_in, vals_in)),
-        nbytes(ids) + 8 * kept + m * 8, kept, FP64_OPS_PER_S, local)
+        nbytes(ids) + 8 * kept + m * 8, kept, lambda: segment_sum(vals, ids, m),
+        FP64_OPS_PER_S, local)
     rows[-1]["rows_in_range"] = kept
+    # no one call computes segment_sum: index_add_ is timed on rows already
+    # filtered into range, and the filter over every id is left out
+    rows[-1]["library_call"] = "zeros + index_add_ on the pre-filtered in-range rows"
     emit({"phase": "kernels", "ok": True})
 
     # where one chunk's device time goes on the kernel route, and the ragged

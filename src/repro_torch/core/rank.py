@@ -85,13 +85,15 @@ def rank_all_chunk(
     axis). ``n_valids`` is a (K,) integer tensor on ``Ws``'s device.
 
     ``use_kernels=True`` builds with the ``bitonic_sort_tiles`` and
-    ``segscan`` kernels. The tile sort is not stable; the two places a
-    stable order is observable are patched as in the reference: equal arc
-    keys arise only from the two orientations of a self-loop (identical
-    payloads), and equal closing-edge keys (duplicate edges in one batch)
-    get a segmented running maximum of their positions, so the right
-    insertion point still reads the last copy's position. Only the padding
-    tails, masked to INF64 or never read, may differ from the eager build.
+    ``segscan`` kernels. The tile sort's contract does not promise a stable
+    order (the reference's network is not stable; the CUDA merge sort is),
+    so the two places a stable order is observable are patched as in the
+    reference: equal arc keys arise only from the two orientations of a
+    self-loop (identical payloads), and equal closing-edge keys (duplicate
+    edges in one batch) get a segmented running maximum of their positions,
+    so the right insertion point still reads the last copy's position. Only
+    the padding tails, masked to INF64 or never read, may differ from the
+    eager build.
     """
     if not use_kernels:
         return RankStructure(

@@ -166,7 +166,9 @@ extern "C" int fused_ingest(const void* f1, const void* chi, const void* f2,
                             const void* coin, const void* phi_hi,
                             const void* phi_lo, void* f1_out, void* chi_out,
                             void* f2_out, void* has_f3_out, long long r,
-                            long long n_batches, long long s, void* stream) {
+                            long long n_batches, long long s, void* stream,
+                            int* launches) {
+  *launches = 0;
   const int threads = 256;
   const unsigned blocks = (unsigned)((r + threads - 1) / threads);
   fused_ingest_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
@@ -178,5 +180,7 @@ extern "C" int fused_ingest(const void* f1, const void* chi, const void* f2,
       (const float*)coin, (const unsigned*)phi_hi, (const unsigned*)phi_lo,
       (int*)f1_out, (int*)chi_out, (int*)f2_out, (unsigned char*)has_f3_out,
       (int)r, (int)n_batches, (int)s);
-  return (int)cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
+  *launches = err == cudaSuccess;
+  return (int)err;
 }

@@ -44,7 +44,9 @@ __global__ void segment_sum_kernel(const double* __restrict__ values,
 }  // namespace
 
 extern "C" int segment_sum(const void* values, const void* ids, long long n,
-                           long long d, long long m, void* out, void* stream) {
+                           long long d, long long m, void* out, void* stream,
+                           int* launches) {
+  *launches = 0;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(out, 0, (size_t)(m * d) * sizeof(double), s);
   if (err != cudaSuccess) return (int)err;
@@ -53,5 +55,7 @@ extern "C" int segment_sum(const void* values, const void* ids, long long n,
   if (blocks > 132LL * 64) blocks = 132LL * 64;  // grid-stride beyond 64 CTAs/SM
   segment_sum_kernel<<<(unsigned)blocks, threads, 0, s>>>(
       (const double*)values, (const int*)ids, n, (int)d, (int)m, (double*)out);
-  return (int)cudaGetLastError();
+  err = cudaGetLastError();
+  *launches = err == cudaSuccess;  // the kernel; the memset is not counted
+  return (int)err;
 }

@@ -150,8 +150,10 @@ extern "C" int segscan_tile_size() { return TILE; }
 
 // scratch: n_tiles * (4 + 4 + 4 + 4) bytes, laid out as
 // tile_v | tile_f | tile_first | carry.
+// *launches: the kernels queued (1 for one tile, else 3).
 extern "C" int segscan(const void* values, const void* flags, long long n,
-                       void* out, void* scratch, void* stream) {
+                       void* out, void* scratch, void* stream, int* launches) {
+  *launches = 0;
   cudaStream_t s = (cudaStream_t)stream;
   const long long n_tiles = (n + TILE - 1) / TILE;
   unsigned* tile_v = (unsigned*)scratch;
@@ -162,11 +164,16 @@ extern "C" int segscan(const void* values, const void* flags, long long n,
       (const int*)values, (const unsigned char*)flags, n, (int*)out, tile_v,
       tile_f, tile_first);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n_tiles == 1) return (int)err;
+  if (err != cudaSuccess) return (int)err;
+  *launches = 1;
+  if (n_tiles == 1) return (int)err;
   segscan_carries<<<1, THREADS, 0, s>>>(tile_v, tile_f, (int)n_tiles, carry);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  *launches = 2;
   segscan_fixup<<<(unsigned)(n_tiles - 1), 256, 0, s>>>((int*)out, n, carry,
                                                         tile_first);
-  return (int)cudaGetLastError();
+  err = cudaGetLastError();
+  if (err == cudaSuccess) *launches = 3;
+  return (int)err;
 }

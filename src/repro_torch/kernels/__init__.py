@@ -7,9 +7,10 @@
   segment_sum         kernels/segment_sum.py   (csrc/segment_sum.cu)
 
 A wrapper launches its kernel for CUDA tensors (or raises) and runs its plain
-version for CPU tensors; ``LAUNCHES`` counts the launches on the card.
+version for CPU tensors; ``LAUNCHES`` counts the wrapper calls that launched
+on the card, ``CUDA_LAUNCHES`` the CUDA kernels those calls queued.
 ``kernels/ref.py`` collects the oracles the tests hold both against.
 """
-from repro_torch.kernels._build import LAUNCHES, reset_launches
+from repro_torch.kernels._build import CUDA_LAUNCHES, LAUNCHES, reset_launches
 
-__all__ = ["LAUNCHES", "reset_launches"]
+__all__ = ["CUDA_LAUNCHES", "LAUNCHES", "reset_launches"]

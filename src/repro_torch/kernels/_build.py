@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared library
 with a plain C interface (one ``extern "C"`` entry per kernel, returning
-``cudaGetLastError()``) and loaded with ``ctypes``. The build happens at first
+``cudaGetLastError()`` and, through its last argument, how many CUDA kernels
+it queued) and loaded with ``ctypes``. The build happens at first
 use, from the sources in the checkout only, into ``build/repro_torch/`` at the
 root of the checkout; the library's file name carries a hash of its source
 and flags, so an edited source is rebuilt and a stale library never loads.
@@ -37,13 +38,20 @@ NVCC_FLAGS = (
 # its no-launch short cuts do not count).
 LAUNCHES = {name: 0 for name in ("fused_ingest", "bitonic_sort_tiles",
                                  "segscan", "multisearch_counts", "segment_sum")}
+# The CUDA kernels those wrapper calls queued, as each C entry reports them
+# (a tile sort, for one, queues a block sort and one kernel per merge pass).
+CUDA_LAUNCHES = dict(LAUNCHES)
+# The C entries' last argument: where they write how many kernels they queued.
+QUEUED = ctypes.POINTER(ctypes.c_int)
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_FUNCS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+        CUDA_LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:
@@ -95,15 +103,28 @@ def build(names: Iterable[str] = SOURCES) -> dict[str, float]:
 
 
 def load(name: str, fn: str, argtypes: Sequence) -> ctypes._CFuncPtr:
-    """The C entry ``fn`` of library ``name``, built if needed, with its
-    argument types set (``c_void_p`` for every pointer and the stream)."""
-    if name not in _LIBS:
-        build([name])
-        _LIBS[name] = ctypes.CDLL(str(library_path(name)))
-    f = getattr(_LIBS[name], fn)
-    f.argtypes = list(argtypes)
-    f.restype = ctypes.c_int
-    return f
+    """The C entry ``fn`` of library ``name``, built and loaded at its first
+    use, with its argument types set (``c_void_p`` for every pointer and the
+    stream)."""
+    if (name, fn) not in _FUNCS:
+        if name not in _LIBS:
+            build([name])
+            _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+        f = getattr(_LIBS[name], fn)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+        _FUNCS[name, fn] = f
+    return _FUNCS[name, fn]
+
+
+def launch(kernel: str, fn: ctypes._CFuncPtr, *args) -> None:
+    """Call the C entry ``fn`` (whose last argument is ``QUEUED``) on
+    ``args``; raise if it failed, else count one launch of ``kernel`` and the
+    CUDA kernels the entry reports it queued."""
+    queued = ctypes.c_int(0)
+    raise_on_error(fn(*args, ctypes.byref(queued)), kernel)
+    LAUNCHES[kernel] += 1
+    CUDA_LAUNCHES[kernel] += queued.value
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype,

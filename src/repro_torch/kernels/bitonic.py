@@ -1,10 +1,13 @@
 """bitonic_sort_tiles: sort each power-of-two tile of (int64 key, int32
-payload) on its own (CUDA kernel ``csrc/bitonic.cu``; the counterpart of
-``repro/kernels/bitonic.py``).
+payload) on its own (CUDA kernel ``csrc/bitonic.cu``, a shared-memory block
+sort plus merge-path passes; the counterpart of ``repro/kernels/bitonic.py``,
+whose name it keeps).
 
 Contract (``repro/kernels/ref.py``): keys bit-equal to a stable sort of each
-tile; payloads equal to it as a multiset per tile (the network is not
-stable); payloads at keys equal to the pad sentinel (int64 max) unspecified.
+tile; payloads equal to it as a multiset per tile; payloads at keys equal to
+the pad sentinel (int64 max) unspecified. The CUDA kernel's merges are
+stable, so it also gives the stable sort's payloads, a stronger result than
+the contract asks of it.
 """
 from __future__ import annotations
 
@@ -16,8 +19,7 @@ from repro_torch.kernels import _build
 
 Tensor = torch.Tensor
 INT64_MAX = 0x7FFFFFFFFFFFFFFF
-_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-         ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, _build.QUEUED]
 
 
 def _pad(keys: Tensor, values: Tensor, tile: int) -> tuple[Tensor, Tensor]:
@@ -47,8 +49,10 @@ def bitonic_sort_tiles_plain(keys: Tensor, values: Tensor, tile: int) -> tuple[T
 
 
 def bitonic_sort_tiles(keys: Tensor, values: Tensor, tile: int) -> tuple[Tensor, Tensor]:
-    """Sort each consecutive ``tile`` of (keys, values) by key; the input is
-    padded to a whole number of tiles and the result cut back to n."""
+    """Sort each consecutive ``tile`` of (keys, values) by key, out of place;
+    a ragged input is padded to a whole number of tiles and the result cut
+    back to n. On the card: one launch for ``tile`` up to the kernel's block
+    of 4096 entries, then one merge pass per doubling (10 at tile 2^21)."""
     if tile < 1 or tile & (tile - 1):
         raise ValueError(f"tile must be a power of two, got {tile}")
     if keys.device.type == "cpu" and values.device.type == "cpu":
@@ -61,9 +65,15 @@ def bitonic_sort_tiles(keys: Tensor, values: Tensor, tile: int) -> tuple[Tensor,
     n = keys.numel()
     if n == 0:
         return keys, values
-    k, v = _pad(keys, values, tile)
-    fn = _build.load("bitonic", "bitonic_sort_tiles", _ARGS)
-    err = fn(k.data_ptr(), v.data_ptr(), k.numel(), tile, _build.stream_handle(dev))
-    _build.raise_on_error(err, "bitonic_sort_tiles")
-    _build.LAUNCHES["bitonic_sort_tiles"] += 1
-    return k[:n], v[:n]
+    k, v = (keys, values) if n % tile == 0 else _pad(keys, values, tile)
+    n_pad = k.numel()
+    out_k, out_v = torch.empty_like(k), torch.empty_like(v)
+    # the merge passes ping-pong through one scratch buffer of n entries,
+    # held here until the launches are queued
+    block = _build.load("bitonic", "bitonic_sort_block", [])()
+    scratch = (torch.empty_like(k), torch.empty_like(v)) if tile > block else None
+    _build.launch("bitonic_sort_tiles", _build.load("bitonic", "bitonic_sort_tiles", _ARGS),
+                  k.data_ptr(), v.data_ptr(), out_k.data_ptr(), out_v.data_ptr(),
+                  *((t.data_ptr() for t in scratch) if scratch else (None, None)),
+                  n_pad, tile, _build.stream_handle(dev))
+    return out_k[:n], out_v[:n]

@@ -15,7 +15,7 @@ import torch
 from repro_torch.kernels import _build
 
 Tensor = torch.Tensor
-_ARGS = [ctypes.c_void_p] * 21 + [ctypes.c_int64] * 3 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 21 + [ctypes.c_int64] * 3 + [ctypes.c_void_p, _build.QUEUED]
 
 
 def fused_ingest_plain(
@@ -75,8 +75,8 @@ def fused_ingest(
     chi_out = torch.empty_like(chi)
     f2_out = torch.empty_like(f2)
     has_f3_out = torch.empty_like(has_f3)
-    fn = _build.load("fused_ingest", "fused_ingest", _ARGS)
-    err = fn(
+    _build.launch(
+        "fused_ingest", _build.load("fused_ingest", "fused_ingest", _ARGS),
         f1.data_ptr(), chi.data_ptr(), f2.data_ptr(), has_f3.data_ptr(),
         key_desc.data_ptr(), key_rank.data_ptr(), src.data_ptr(), dst.data_ptr(),
         pos.data_ptr(), ekey.data_ptr(), epos.data_ptr(), replace.data_ptr(),
@@ -84,6 +84,4 @@ def fused_ingest(
         phi_lo.data_ptr(), f1_out.data_ptr(), chi_out.data_ptr(), f2_out.data_ptr(),
         has_f3_out.data_ptr(), r, K, s, _build.stream_handle(dev),
     )
-    _build.raise_on_error(err, "fused_ingest")
-    _build.LAUNCHES["fused_ingest"] += 1
     return f1_out, chi_out, f2_out, has_f3_out

@@ -11,7 +11,7 @@ from repro_torch.kernels import _build
 
 Tensor = torch.Tensor
 _ARGS = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, _build.QUEUED]
 
 
 def multisearch_counts_plain(sorted_keys: Tensor, queries: Tensor) -> tuple[Tensor, Tensor]:
@@ -42,9 +42,7 @@ def multisearch_counts(sorted_keys: Tensor, queries: Tensor) -> tuple[Tensor, Te
         lt.zero_()
         le.zero_()
         return lt, le
-    fn = _build.load("multisearch", "multisearch_counts", _ARGS)
-    err = fn(sorted_keys.data_ptr(), n, queries.data_ptr(), q, lt.data_ptr(),
-             le.data_ptr(), _build.stream_handle(dev))
-    _build.raise_on_error(err, "multisearch_counts")
-    _build.LAUNCHES["multisearch_counts"] += 1
+    _build.launch("multisearch_counts", _build.load("multisearch", "multisearch_counts", _ARGS),
+                  sorted_keys.data_ptr(), n, queries.data_ptr(), q, lt.data_ptr(),
+                  le.data_ptr(), _build.stream_handle(dev))
     return lt, le

@@ -11,7 +11,7 @@ from repro_torch.kernels import _build
 
 Tensor = torch.Tensor
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-         ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
+         ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, _build.QUEUED]
 
 
 def segment_sum_plain(values: Tensor, segment_ids: Tensor, num_segments: int) -> Tensor:
@@ -48,9 +48,7 @@ def segment_sum(values: Tensor, segment_ids: Tensor, num_segments: int) -> Tenso
     if n == 0 or num_segments == 0:
         return torch.zeros((num_segments, d), dtype=values.dtype, device=dev)
     out = torch.empty((num_segments, d), dtype=values.dtype, device=dev)
-    fn = _build.load("segment_sum", "segment_sum", _ARGS)
-    err = fn(values.data_ptr(), segment_ids.data_ptr(), n, d, num_segments,
-             out.data_ptr(), _build.stream_handle(dev))
-    _build.raise_on_error(err, "segment_sum")
-    _build.LAUNCHES["segment_sum"] += 1
+    _build.launch("segment_sum", _build.load("segment_sum", "segment_sum", _ARGS),
+                  values.data_ptr(), segment_ids.data_ptr(), n, d, num_segments,
+                  out.data_ptr(), _build.stream_handle(dev))
     return out

@@ -12,7 +12,7 @@ from repro_torch.primitives.segscan import segmented_sum_scan
 
 Tensor = torch.Tensor
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_void_p]
+         ctypes.c_void_p, ctypes.c_void_p, _build.QUEUED]
 
 
 def segscan_plain(values: Tensor, flags: Tensor) -> Tensor:
@@ -38,9 +38,7 @@ def segscan(values: Tensor, flags: Tensor) -> Tensor:
     n_tiles = -(-n // tile)
     out = torch.empty_like(values)
     scratch = torch.empty(4 * n_tiles, dtype=torch.int32, device=dev)
-    fn = _build.load("segscan", "segscan", _ARGS)
-    err = fn(values.data_ptr(), flags.data_ptr(), n, out.data_ptr(),
-             scratch.data_ptr(), _build.stream_handle(dev))
-    _build.raise_on_error(err, "segscan")
-    _build.LAUNCHES["segscan"] += 1
+    _build.launch("segscan", _build.load("segscan", "segscan", _ARGS), values.data_ptr(),
+                  flags.data_ptr(), n, out.data_ptr(), scratch.data_ptr(),
+                  _build.stream_handle(dev))
     return out

@@ -193,7 +193,8 @@ def _imports(path: pathlib.Path):
 
 
 def test_port_imports_neither_jax_nor_repro():
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tools" / "torch_rates.py"]
     assert len(files) > 20
     for f in files:
         for mod in _imports(f):

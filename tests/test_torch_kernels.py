@@ -3,6 +3,7 @@
 against the Pallas kernel in interpret mode at a tiny shape, the wrappers'
 CPU dispatch and argument checks, and (on a CUDA machine only) each CUDA
 kernel against its plain version."""
+import ctypes
 import sys
 import pathlib
 
@@ -22,7 +23,7 @@ from repro.kernels import ref as kref  # noqa: E402
 from repro_torch import rng  # noqa: E402
 from repro_torch.core.bulk import chunk_inputs  # noqa: E402
 from repro_torch.core.state import init_state  # noqa: E402
-from repro_torch.kernels import LAUNCHES, _build, ref  # noqa: E402
+from repro_torch.kernels import CUDA_LAUNCHES, LAUNCHES, _build, ref  # noqa: E402
 from repro_torch.kernels.bitonic import bitonic_sort_tiles, bitonic_sort_tiles_plain  # noqa: E402
 from repro_torch.kernels.fused_ingest import fused_ingest, fused_ingest_plain  # noqa: E402
 from repro_torch.kernels.multisearch import multisearch_counts, multisearch_counts_plain  # noqa: E402
@@ -42,6 +43,38 @@ def _queries(n, q, seed):
     return qs[:q].astype(np.int64)
 
 
+def _families(n, seed):
+    """The oracle harness's key families and negative keys (-1, as pack2
+    makes for empty slots)."""
+    fams = key_families(n, seed)
+    g = np.random.default_rng(seed + 1)
+    fams["negative"] = np.where(g.random(n) < 0.5, -1, g.integers(-3, max(n, 2), n)).astype(np.int64)
+    return fams
+
+
+def _sort_families(n, seed):
+    return {**_families(n, seed), "sorted": np.arange(n, dtype=np.int64),
+            "reversed": np.arange(n, 0, -1, dtype=np.int64)}
+
+
+def _search_families(n, seed):
+    """Sorted keys: the families and equal runs of up to about n/40 keys,
+    longer than the CUDA kernel's sample spacing (ceil(n / 8192))."""
+    fams = _families(n, seed)
+    fams["long_runs"] = np.random.default_rng(seed).integers(0, 40, n).astype(np.int64) * 1000
+    return {k: np.sort(v) for k, v in fams.items()}
+
+
+def _edge_queries(keys, q, seed):
+    """Random queries, then one below every key, one above, the first and
+    last keys below INT64 max, 0 and INT64 max."""
+    n = len(keys)
+    lo = int(keys[0]) if n else 0
+    hi = int(keys[keys < INF64].max()) if (keys < INF64).any() else 0
+    edge = np.array([lo - 1, hi + 1, lo, hi, 0, INF64], np.int64)
+    return np.concatenate([_queries(n, q, seed), edge])
+
+
 @pytest.mark.parametrize("n,q", [(0, 4), (4, 0), (1, 1), (63, 33), (64, 65), (65, 200)])
 def test_multisearch_plain_vs_jax_ref(n, q):
     for name, keys in key_families(n, n + q).items():
@@ -49,6 +82,19 @@ def test_multisearch_plain_vs_jax_ref(n, q):
         qs = _queries(n, q, n * q)
         want = kref.multisearch_counts_ref(jnp.asarray(keys), jnp.asarray(qs))
         got = multisearch_counts(T(keys), T(qs))  # CPU tensors: the plain version
+        for w, g in zip(want, got):
+            np.testing.assert_array_equal(np.asarray(w), g.numpy(), err_msg=name)
+
+
+@pytest.mark.parametrize("n", [8191, 8192, 8193, 3 * 8192 + 5, 100_003])
+def test_multisearch_plain_vs_jax_ref_long_runs(n):
+    """n below, at and above the CUDA kernel's 8192-key sample, not a power
+    of two, equal runs longer than the sample spacing, queries outside the
+    keys and at INT64 max."""
+    for name, keys in _search_families(n, n).items():
+        qs = _edge_queries(keys, 500, n)
+        want = kref.multisearch_counts_ref(jnp.asarray(keys), jnp.asarray(qs))
+        got = multisearch_counts(T(keys), T(qs))
         for w, g in zip(want, got):
             np.testing.assert_array_equal(np.asarray(w), g.numpy(), err_msg=name)
 
@@ -63,11 +109,18 @@ def test_segscan_plain_vs_jax_ref(n):
         np.testing.assert_array_equal(np.asarray(want), segscan(T(v), T(f)).numpy(), err_msg=name)
 
 
-@pytest.mark.parametrize("n,tile", [(0, 16), (15, 16), (16, 16), (17, 16), (255, 256), (513, 256)])
+@pytest.mark.parametrize("n,tile", [
+    (0, 16), (15, 16), (16, 16), (17, 16), (255, 256), (513, 256),
+    # tiles below the CUDA kernel's 4096-entry block (many to a block), at
+    # it, and 1 to 5 merge passes above it; ragged n
+    (9000, 1), (20_001, 2), (3 * 8192 + 16, 16), (50_000, 64), (3 * 2048 + 1, 2048),
+    (5 * 4096, 4096), (8193, 8192), (3 * 16384 - 7, 16384), (2 * 32768 + 1, 32768),
+    (2**17, 2**17)])
 def test_bitonic_plain_vs_jax_ref(n, tile):
     """The plain version is a stable sort: it equals the (stable) oracle
-    element for element, payloads included."""
-    for name, keys in key_families(n, n + tile).items():
+    element for element, payloads included, on the key families and on
+    negative, sorted and reversed keys."""
+    for name, keys in _sort_families(n, n + tile).items():
         vals = np.arange(n, dtype=np.int32)
         want = kref.bitonic_sort_tiles_ref(jnp.asarray(keys), jnp.asarray(vals), tile)
         got = bitonic_sort_tiles(T(keys), T(vals), tile)
@@ -156,13 +209,35 @@ def test_plain_versions_vs_pallas_interpret():
 
 
 def test_wrappers_take_plain_version_only_on_cpu():
-    before = dict(LAUNCHES)
+    before, cuda_before = dict(LAUNCHES), dict(CUDA_LAUNCHES)
     k = torch.arange(10, dtype=torch.int64)
     multisearch_counts(k, k)
     segscan(torch.ones(10, dtype=torch.int32), torch.zeros(10, dtype=torch.bool))
     bitonic_sort_tiles(k.flip(0).contiguous(), torch.zeros(10, dtype=torch.int32), 16)
     segment_sum(torch.ones(10, 1, dtype=torch.float64), torch.zeros(10, dtype=torch.int32), 3)
     assert LAUNCHES == before  # no launch counted off the card
+    assert CUDA_LAUNCHES == cuda_before
+
+
+def test_launch_counts_what_the_entry_reports(monkeypatch):
+    """``_build.launch`` passes the C entry an out-count as its last
+    argument: on success it adds one wrapper launch and the CUDA kernels the
+    entry reports; on an error it raises and counts nothing."""
+    monkeypatch.setattr(_build, "LAUNCHES", dict.fromkeys(LAUNCHES, 0))
+    monkeypatch.setattr(_build, "CUDA_LAUNCHES", dict.fromkeys(LAUNCHES, 0))
+    proto = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_int64, _build.QUEUED)
+
+    def entry(err, queued):
+        queued[0] = 0 if err else 3
+        return err
+
+    fn = proto(entry)
+    _build.launch("segscan", fn, 0)
+    _build.launch("segscan", fn, 0)
+    assert _build.LAUNCHES["segscan"] == 2 and _build.CUDA_LAUNCHES["segscan"] == 6
+    with pytest.raises(RuntimeError, match="error code 9"):
+        _build.launch("segscan", fn, 9)
+    assert _build.LAUNCHES["segscan"] == 2 and _build.CUDA_LAUNCHES["segscan"] == 6
 
 
 def test_wrapper_argument_checks():
@@ -219,12 +294,51 @@ def test_cuda_segscan(cuda, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,tile", [(17, 16), (8193, 8192), (3 * 2**16, 2**16)])
+@pytest.mark.parametrize("n,q", [(8191, 300), (8192, 300), (8193, 300), (3 * 8192 + 5, 300),
+                                 (100_003, 4096)])
+def test_cuda_multisearch_sample_edges(cuda, n, q):
+    """n below, at and above the kernel's shared-memory sample; equal runs
+    longer than its spacing; queries outside the keys and at INT64 max."""
+    for name, keys in _search_families(n, n).items():
+        k, qs = T(keys).to(cuda), T(_edge_queries(keys, q, n)).to(cuda)
+        for a, b in zip(multisearch_counts(k, qs), multisearch_counts_plain(k, qs)):
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,tile", [(17, 16), (8193, 8192), (3 * 2**16, 2**16),
+                                    (50_000, 2), (3 * 8192 + 16, 16), (2048, 2048),
+                                    (4096, 4096), (3 * 2**17 - 5, 2**17)])
 def test_cuda_bitonic(cuda, n, tile):
-    keys = T(np.random.default_rng(n).permutation(n).astype(np.int64)).to(cuda)  # distinct
-    vals = torch.arange(n, dtype=torch.int32, device=cuda)
-    for a, b in zip(bitonic_sort_tiles(keys, vals, tile), bitonic_sort_tiles_plain(keys, vals, tile)):
-        assert torch.equal(a, b)
+    """Tiles below the kernel's block, at it, and 1 to 5 merge passes above
+    it, ragged n, on distinct keys and every family. The kernel's merges are
+    stable, so it equals the stable plain version entry for entry, payloads
+    included, and it leaves its input as it was."""
+    fams = {"distinct": np.random.default_rng(n).permutation(n).astype(np.int64),
+            **_sort_families(n, n + tile)}
+    for name, keys in fams.items():
+        k = T(keys).to(cuda)
+        v = torch.arange(n, dtype=torch.int32, device=cuda)
+        for a, b in zip(bitonic_sort_tiles(k, v, tile), bitonic_sort_tiles_plain(k, v, tile)):
+            assert torch.equal(a, b), name
+        assert torch.equal(k.cpu(), T(keys)), "the sort is out of place"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,most", [(16, 1), (4096, 1), (2**20, 10), (2**21, 10)])
+def test_cuda_bitonic_launches_per_call(cuda, tile, most, monkeypatch):
+    """One tile sort call queues at most 10 CUDA kernels at the ingest
+    path's tiles (55 with the network of global passes), one where a tile
+    fits the kernel's shared-memory block; a search queues one."""
+    monkeypatch.setattr(_build, "LAUNCHES", dict.fromkeys(LAUNCHES, 0))
+    monkeypatch.setattr(_build, "CUDA_LAUNCHES", dict.fromkeys(LAUNCHES, 0))
+    k = torch.randint(-5, 2**40, (2 * tile,), dtype=torch.int64, device=cuda)
+    v = torch.arange(2 * tile, dtype=torch.int32, device=cuda)
+    bitonic_sort_tiles(k, v, tile)
+    assert _build.LAUNCHES["bitonic_sort_tiles"] == 1
+    assert 1 <= _build.CUDA_LAUNCHES["bitonic_sort_tiles"] <= most
+    multisearch_counts(torch.sort(k).values, k)
+    assert _build.LAUNCHES["multisearch_counts"] == _build.CUDA_LAUNCHES["multisearch_counts"] == 1
 
 
 @pytest.mark.cuda
