@@ -17,7 +17,11 @@ Phases, each of which raises on failure (nothing is caught):
              8192-key sample, equal runs longer than the sample spacing,
              queries below, above and equal to every key and INT64 max; for
              segment_sum dropped ids, every row in one bin, n = 0, m = 0,
-             d = 1 and 2), equal under each kernel's contract;
+             d = 1 and 2; for fused_ingest, which draws its own randomness,
+             stream lengths above 2^32 and at 0, the fold-in counter across
+             its 32-bit wrap, empty batches, r off its 512-estimator tile,
+             and 2s and s below, at and above its 1024-key samples), equal
+             under each kernel's contract;
   golden     the kernel path on a small chunked stream with a ragged tail
              reproduces the JAX reference's final-state sha256 and estimate
              (src/repro_torch/golden/stream_small.json, written by JAX);
@@ -33,7 +37,10 @@ Phases, each of which raises on failure (nothing is caught):
              that every kernel was launched, that the state is bit-identical
              to the plain path (scan ingest, torch.searchsorted), that a
              snapshot after chunk 1 restored into a fresh engine finishes
-             with the same state, and that rel.err <= 5%; it also times a
+             with the same state, that the second chunk on the kernel route
+             draws no randomness outside fused_ingest (the host's draws
+             patched to raise) and equals the plain route, and that
+             rel.err <= 5%; it also times a
              second run of the stream in a fresh engine, and the default
              batch validation on the host;
   local_full the same stream under the local scheme (8 pools, 2^22
@@ -51,8 +58,9 @@ Phases, each of which raises on failure (nothing is caught):
              the tile sort at both of its shapes (arc and edge tiles) and
              multisearch at all three (Q1, Q2, step 3); for every kernel and
              shape the CUDA launches of one wrapper call, as its C entry
-             reports them; then where one chunk's device time goes
-             (randomness, structure build, fused loop) and the ragged tail
+             reports them; then where one chunk's device time goes on the
+             kernel route (structure build, fused_ingest), the plain
+             route's chunk and its hoisted draws, and the ragged tail
              batch's time;
   cli        python -m repro_torch.launch.stream prints the golden CLI lines
              (global and local).
@@ -243,14 +251,31 @@ def search_queries(keys: np.ndarray, q: int, seed: int) -> np.ndarray:
                            edge])[-q:].astype(np.int64) if q else np.zeros(0, np.int64)
 
 
+def fused_chunk(g, s: int, K: int, dev, empty=()):
+    """K batches of s edges over a small vertex set (heavy duplicates), with
+    a self-loop and a duplicate edge in one batch, ragged batch sizes (the
+    first full) and the batches in ``empty`` holding no valid edge."""
+    import torch
+
+    Ws = g.integers(0, max(3 * s // 2, 4), size=(K, s, 2)).astype(np.int32)
+    Ws[0, 0] = [1, 1]  # self-loop
+    if K > 1:
+        Ws[1, 1] = Ws[1, 0]  # duplicate edge in one batch
+    nv = g.integers(1, s + 1, size=K).astype(np.int32)
+    nv[0] = s
+    nv[list(empty)] = 0
+    return torch.from_numpy(Ws).to(dev), torch.from_numpy(nv).to(dev)
+
+
 def phase_edges(dev) -> None:
     import torch
 
     from repro_torch import rng as trng
-    from repro_torch.core.bulk import bulk_update_chunk
+    from repro_torch.core.bulk import bulk_update_chunk, chunk_structures
     from repro_torch.core.state import init_state
     from repro_torch.kernels import ref
     from repro_torch.kernels.bitonic import bitonic_sort_tiles
+    from repro_torch.kernels.fused_ingest import fused_ingest, fused_ingest_plain
     from repro_torch.kernels.multisearch import multisearch_counts
     from repro_torch.kernels.segment_sum import segment_sum
     from repro_torch.kernels.segscan import segscan
@@ -298,17 +323,35 @@ def phase_edges(dev) -> None:
                 cases += 1
     for r, s, K, seed in ((33, 6, 3, 4), (1000, 64, 4, 5), (4099, 300, 2, 6)):
         g = np.random.default_rng(seed)
-        Ws = g.integers(0, max(3 * s // 2, 4), size=(K, s, 2)).astype(np.int32)
-        Ws[0, 0] = [1, 1]  # self-loop
-        Ws[1, 1] = Ws[1, 0]  # duplicate edge in one batch
-        nv = g.integers(1, s + 1, size=K).astype(np.int32)
-        nv[0] = s
-        Wt, nvt = torch.from_numpy(Ws).to(dev), torch.from_numpy(nv).to(dev)
+        Wt, nvt = fused_chunk(g, s, K, dev)
         key = trng.PRNGKey(seed, dev)
         want = ref.fused_ingest_ref(init_state(r, dev), Wt, nvt, key, 3)
         got = bulk_update_chunk(init_state(r, dev), Wt, nvt, key, 3, backend="kernel")
         for f in want._fields:
             require_equal(f"fused chunk r={r} s={s} K={K} {f}", getattr(got, f), getattr(want, f))
+        cases += 1
+    # fused_ingest against its plain version on a populated state: stream
+    # lengths above 2^32 (64-bit spans) and at 0 (a first batch with
+    # totals = 0), the fold-in counter across its 32-bit wrap, empty
+    # batches, r off the CTA's 512-estimator tile, and 2s (key_desc,
+    # key_rank) and s (ekey) below, at and above the 1024-key samples
+    for r, s, K, m_seen, step0, empty in (
+            (513, 511, 4, 2**32 + 17, 2**32 - 2, (1,)), (511, 512, 3, 0, 0, (0,)),
+            (1537, 513, 2, 2**40, 7, ()), (5000, 1023, 2, 123_456, 2**32 - 1, ()),
+            (4097, 1024, 3, 2**31 - 9, 5, (2,)), (1025, 1025, 2, 3, 2**33, ()),
+            (2**16 + 3, 20_000, 4, 2**33, 0, (1, 3))):
+        g = np.random.default_rng(r + s)
+        key = trng.PRNGKey(s, dev)
+        warm = bulk_update_chunk(init_state(r, dev), *fused_chunk(g, s, 2, dev), key,
+                                 backend="kernel")
+        st = init_state(r, dev) if m_seen == 0 else warm._replace(
+            m_seen=torch.tensor(m_seen, dtype=torch.int64, device=dev))
+        Wt, nvt = fused_chunk(g, s, K, dev, empty)
+        args = (st.f1, st.chi, st.f2, st.has_f3, *chunk_structures(Wt, nvt, use_kernels=True),
+                Wt, nvt, st.m_seen, key, step0)
+        for f, a, b in zip(("f1", "chi", "f2", "has_f3"), fused_ingest(*args),
+                           fused_ingest_plain(*args)):
+            require_equal(f"fused_ingest r={r} s={s} K={K} m_seen={m_seen} step0={step0} {f}", a, b)
         cases += 1
     # segment_sum: integer-valued float64, so atomics in any order are exact
     for n, m, d in itertools.product((0, 1, 255, 256, 257, 4097, 100_003), (0, 1, 31, 1000),
@@ -479,6 +522,7 @@ def phase_full(dev) -> dict:
     run_stream(resumed, batches(edges, s))  # run_stream skips the first engine.step batches
     if state_sha256(resumed.snapshot()) != digest:
         raise AssertionError("full: snapshot after chunk 1 + restore diverged")
+    chunk_two_without_host_draws(dev, first.state, edges)
 
     emit({"phase": "full", "r": FULL["r"], "s": s, "K": K, "m": int(len(edges)),
           "tau": tau, "estimate": est, "rel_err": rel, "edges_per_s": rep.edges_per_s,
@@ -486,8 +530,43 @@ def phase_full(dev) -> dict:
           "plain_path_seconds": plain_s, "peak_device_bytes": peak, "launches": launches,
           "cuda_launches": cuda_launches, "state_sha256": digest,
           "plain_path_equal": True, "restore_equal": True,
-          "validate_ms_per_batch": validate_ms})
+          "validate_ms_per_batch": validate_ms, "kernel_route_without_host_draws_equal": True})
     return {"launches": launches, "state": eng.state, "edges": edges, "tau": tau}
+
+
+def chunk_two_without_host_draws(dev, state, edges) -> None:
+    """The stream's second chunk on the kernel route while every way to draw
+    randomness outside the kernel raises (the hoisted draws, the int64
+    randint and the threefry block that all of rng.py's draws go through),
+    then on the plain route (hoisted draws and selects, plain searches):
+    the two states must be equal."""
+    import torch
+
+    from repro_torch import rng as trng
+    from repro_torch.core import bulk
+
+    s, K = FULL["s"], FULL["K"]
+    Ws = torch.from_numpy(edges[K * s: 2 * K * s].reshape(K, s, 2)).to(dev)
+    nv = torch.full((K,), s, dtype=torch.int32, device=dev)
+    key = trng.PRNGKey(FULL["seed"], dev)
+
+    def refuse(name):
+        def raise_(*args, **kwargs):
+            raise AssertionError(f"full: the kernel route called {name} outside fused_ingest")
+        return raise_
+
+    saved = (bulk._chunk_randomness, trng.randint64, trng.threefry2x32)
+    bulk._chunk_randomness = refuse("_chunk_randomness")
+    trng.randint64 = refuse("rng.randint64")
+    trng.threefry2x32 = refuse("rng.threefry2x32")
+    try:
+        got = bulk.bulk_update_chunk(state, Ws, nv, key, K, backend="kernel")
+        torch.cuda.synchronize(dev)
+    finally:
+        bulk._chunk_randomness, trng.randint64, trng.threefry2x32 = saved
+    want = bulk.bulk_update_chunk(state, Ws, nv, key, K, backend="fused")
+    for f in want._fields:
+        require_equal(f"full: chunk 2 without host draws, {f}", getattr(got, f), getattr(want, f))
 
 
 def phase_local_full(dev, full: dict) -> dict:
@@ -582,7 +661,8 @@ def phase_kernels(dev, full: dict, local: dict) -> list:
         _q1_queries,
         bulk_update_all,
         bulk_update_chunk,
-        chunk_inputs,
+        chunk_draws,
+        chunk_structures,
     )
     from repro_torch.core.rank import INF64 as KEY_PAD
     from repro_torch.core.rank import _next_pow2, rank_all_chunk
@@ -600,8 +680,8 @@ def phase_kernels(dev, full: dict, local: dict) -> list:
     Ws = torch.from_numpy(full["edges"][: K * s].reshape(K, s, 2)).to(dev)
     nv = torch.full((K,), s, dtype=torch.int32, device=dev)
     key = trng.PRNGKey(FULL["seed"], dev)
-    args, _ = chunk_inputs(state, Ws, nv, key, 0, use_kernels=False)
-    key_desc, key_rank, src, dst, pos, ekey, epos = args[:7]
+    structs = chunk_structures(Ws, nv, use_kernels=False)
+    key_desc, key_rank, src, dst, pos, ekey, epos = structs
     rows = []
 
     def per_call(name, fn) -> int:
@@ -630,18 +710,25 @@ def phase_kernels(dev, full: dict, local: dict) -> list:
                 "ms_after_library": time_ms(fn, reps=20), "plain_ms": time_ms(plain),
                 "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
 
-    # fused_ingest: one K-batch chunk of the full-size stream over the final state
+    # fused_ingest: one K-batch chunk of the full-size stream over the final
+    # state, its draws made in the kernel from the stream key
     st = (state.f1, state.chi, state.f2, state.has_f3)
-    got = fused_ingest(*st, *args)
-    want = fused_ingest_plain(*st, *args)
+    args = (*st, *structs, Ws, nv, state.m_seen, key, 0)
+    got = fused_ingest(*args)
+    want = fused_ingest_plain(*args)
     for f, a, b in zip(("f1", "chi", "f2", "has_f3"), got, want):
         require_equal(f"fused_ingest {f}", a, b)
     err = max(max_abs(a, b) for a, b in zip(got, want))
-    depth = 6 * math.ceil(math.log2(2 * s + 1))
-    row("fused_ingest", err, time_ms(lambda: fused_ingest(*st, *args), reps=5),
-        time_ms(lambda: fused_ingest_plain(*st, *args), reps=2, warmup=1), None,
-        nbytes(*st, *args) + nbytes(*st), 2 * r * K * (depth + 40),
-        lambda: fused_ingest(*st, *args))
+    # operations per (batch, estimator): 5 threefry blocks of 20 rounds (an
+    # add, a rotate, a xor) and 6 key injections (3 adds), and the searches'
+    # int64 compares (2 operations each), log2 of the keys per bound: 4
+    # bounds over key_desc, 1 over key_rank, 2 over ekey
+    tf_ops = 5 * (20 * 3 + 6 * 3)
+    search_ops = 2 * (5 * math.ceil(math.log2(2 * s + 1)) + 2 * math.ceil(math.log2(s + 1)))
+    row("fused_ingest", err, time_ms(lambda: fused_ingest(*args), reps=10),
+        time_ms(lambda: fused_ingest_plain(*args), reps=2, warmup=1), None,
+        nbytes(*args[:-1]) + nbytes(*st), r * K * (tf_ops + search_ops),
+        lambda: fused_ingest(*args))
 
     # bitonic_sort_tiles: the arc tiles of that chunk (K tiles of 2^21) and
     # its edge tiles (K tiles of 2^20), as rank_all_chunk pads them
@@ -743,18 +830,22 @@ def phase_kernels(dev, full: dict, local: dict) -> list:
     rows[-1]["library_call"] = "zeros + index_add_ on the pre-filtered in-range rows"
     emit({"phase": "kernels", "ok": True})
 
-    # where one chunk's device time goes on the kernel route, and the ragged
-    # tail batch on the per-batch route
+    # where one chunk's device time goes on the kernel route (the structure
+    # build, then fused_ingest, which draws its own randomness); the plain
+    # route's hoisted draws and selects, which only it computes; and the
+    # ragged tail batch on the per-batch route
     steps = torch.arange(K, dtype=torch.int64, device=dev)
     tail = full["edges"][2 * K * s:]
     W_tail = torch.zeros((s, 2), dtype=torch.int32, device=dev)
     W_tail[: len(tail)] = torch.from_numpy(tail).to(dev)
     emit({"phase": "breakdown",
-          "chunk_ms": time_ms(lambda: bulk_update_chunk(state, Ws, nv, key, 0, backend="kernel"), reps=3),
-          "randomness_ms": time_ms(lambda: _chunk_randomness(state, nv, key, steps), reps=3),
-          "structures_ms": time_ms(lambda: rank_all_chunk(Ws, nv, use_kernels=True), reps=3),
-          "chunk_inputs_ms": time_ms(lambda: chunk_inputs(state, Ws, nv, key, 0, use_kernels=True), reps=3),
+          "chunk_ms": time_ms(lambda: bulk_update_chunk(state, Ws, nv, key, 0, backend="kernel"), reps=5),
+          "structures_ms": time_ms(lambda: rank_all_chunk(Ws, nv, use_kernels=True), reps=5),
           "fused_ingest_ms": rows[0]["ms"],
+          "plain_route_chunk_ms": time_ms(lambda: bulk_update_chunk(state, Ws, nv, key, 0,
+                                                                    backend="fused"), reps=3),
+          "plain_route_randomness_ms": time_ms(lambda: _chunk_randomness(state, nv, key, steps), reps=3),
+          "plain_route_draws_and_selects_ms": time_ms(lambda: chunk_draws(state, Ws, nv, key, 0), reps=3),
           "tail_batch_ms": time_ms(lambda: bulk_update_all(state, W_tail, len(tail), key, "kernel"), reps=3)})
     return rows
 

@@ -229,13 +229,12 @@ def fused_batch(f1, chi, f2, has_f3, R: RankStructure, replace, w_sel, f1_bpos,
     return f1, chi, f2, has_f3
 
 
-def chunk_inputs(state: EstimatorState, Ws: Tensor, n_valids: Tensor, key: Tensor,
-                 step0: int, *, use_kernels: bool):
-    """Everything the fused batch loop reads, hoisted out of it: the
-    arguments of ``fused_ingest`` after the state (the K rank structures'
-    fields, then replace, w_sel, f1_bpos, coin, phi_hi, phi_lo) and the
-    chunk's final m_seen. ``use_kernels`` builds the structures with the
-    tile-sort and segscan kernels."""
+def chunk_draws(state: EstimatorState, Ws: Tensor, n_valids: Tensor, key: Tensor,
+                step0: int):
+    """Every draw and step-1 select of a K-batch chunk, hoisted out of the
+    batch loop: ``fused_ingest_hoisted``'s arguments after the structures
+    (replace, w_sel, f1_bpos, coin, phi_hi, phi_lo). The ``fused_ingest``
+    kernel computes the same values in registers instead."""
     K = Ws.shape[0]
     dev = Ws.device
     n_valids = n_valids.to(device=dev, dtype=torch.int32)
@@ -251,23 +250,35 @@ def chunk_inputs(state: EstimatorState, Ws: Tensor, n_valids: Tensor, key: Tenso
     )
     w_sel = torch.gather(Ws, 1, idx[:, :, None].expand(K, state.r, 2))
     f1_bpos = torch.where(replace, idx, torch.full_like(idx, -1)).to(torch.int32)
+    return replace, w_sel, f1_bpos, coin, phi_hi, phi_lo
 
-    R = rank_all_chunk(Ws, n_valids, use_kernels=use_kernels)
-    args = (R.key_desc, R.key_rank, R.src, R.dst, R.pos, R.ekey, R.epos,
-            replace, w_sel, f1_bpos, coin, phi_hi, phi_lo)
-    return args, state.m_seen + torch.sum(nv64)
+
+def chunk_structures(Ws: Tensor, n_valids: Tensor, *, use_kernels: bool):
+    """The K rank structures' fields that the batch loop reads, as
+    ``fused_ingest`` takes them: key_desc, key_rank, src, dst, pos, ekey,
+    epos. ``use_kernels`` builds them with the tile-sort and segscan
+    kernels."""
+    R = rank_all_chunk(Ws, n_valids.to(device=Ws.device, dtype=torch.int32),
+                       use_kernels=use_kernels)
+    return R.key_desc, R.key_rank, R.src, R.dst, R.pos, R.ekey, R.epos
 
 
 def _bulk_update_chunk_fused(state: EstimatorState, Ws: Tensor, n_valids: Tensor,
                              key: Tensor, step0: int, *, use_kernels: bool) -> EstimatorState:
-    """The fused K-batch pipeline: ``chunk_inputs``, then the batch loop in
-    the ``fused_ingest`` kernel (``use_kernels``) or in its plain version."""
-    from repro_torch.kernels.fused_ingest import fused_ingest, fused_ingest_plain
+    """The fused K-batch pipeline. The kernel route (``use_kernels``) builds
+    the structures with kernels and hands the chunk to the ``fused_ingest``
+    kernel, which draws its own randomness; the plain route hoists the draws
+    and selects (``chunk_draws``) and runs ``fused_ingest_hoisted``."""
+    from repro_torch.kernels.fused_ingest import fused_ingest, fused_ingest_hoisted
 
-    args, m_out = chunk_inputs(state, Ws, n_valids, key, step0, use_kernels=use_kernels)
-    ingest = fused_ingest if use_kernels else fused_ingest_plain
-    f1, chi, f2, has_f3 = ingest(state.f1, state.chi, state.f2, state.has_f3, *args)
-    return EstimatorState(f1, chi, f2, has_f3, m_out)
+    nv = n_valids.to(device=Ws.device, dtype=torch.int32)
+    structs = chunk_structures(Ws, nv, use_kernels=use_kernels)
+    st = (state.f1, state.chi, state.f2, state.has_f3)
+    if use_kernels:
+        out = fused_ingest(*st, *structs, Ws, nv, state.m_seen, key, step0)
+    else:
+        out = fused_ingest_hoisted(*st, *structs, *chunk_draws(state, Ws, nv, key, step0))
+    return EstimatorState(*out, state.m_seen + torch.sum(nv.to(torch.int64)))
 
 
 def bulk_update_chunk(state: EstimatorState, Ws: Tensor, n_valids: Tensor,

@@ -1,37 +1,75 @@
-// fused_ingest: apply a K-batch chunk to the estimator state in one kernel.
+// fused_ingest: apply a K-batch chunk to the estimator state, drawing the
+// chunk's randomness inside the kernel.
 //
 // Replaces the Pallas kernel repro/kernels/fused_ingest.py::_fused_ingest_kernel
 // (wrapper fused_ingest). Contract: bit-identical to the scan of
 // bulk_update_all over the same chunk (repro_torch/kernels/ref.py ::
-// fused_ingest_ref), given the hoisted randomness and the K rank structures.
+// fused_ingest_ref), given the K rank structures, the chunk's edges, the
+// stream key and the chunk's first step.
 //
-// Design: one thread per estimator. Its state (f1, chi, f2, has_f3) stays in
-// registers across the K batches and is read and written once per chunk.
-// The TPU kernel answers every search by a dense compare-reduce of its
-// estimator tile against the whole per-batch structure and reads payloads by
-// one-hot selects, because a TPU has no fast gather; at the paper's batch of
-// 2^20 edges a structure holds 2^21 int64 keys (16 MiB) and that O(r * s)
-// form cannot carry over. Here each search is a binary search over the
-// structure in global memory (the three structures of one batch, 40 MiB,
-// mostly stay in the 50 MB L2 while all estimators walk them) and each
-// payload is one gather at the found index.
+// The TPU kernel reads every random draw from HBM, hoisted out of the scan,
+// and answers each search by a dense compare-reduce of its estimator tile
+// against the whole per-batch structure (a TPU has no fast gather). Here:
 //
-// Per batch and estimator: step-1 replace; Q1 rank/degree as four lower
-// bounds over key_desc; chi update; coin < chi+ / max(chi, 1) in IEEE float
-// (the division is a correctly rounded '/', never __fdividef, and the file is
-// built without --use_fast_math); phi by the uint32 randint span arithmetic;
-// the Q2 decode as one lower bound over key_rank; the step-3 closing probe as
-// a lower and an upper bound over ekey under the p3 > f2_bpos rule.
+//   * Draws in registers. Element i of a jax draw is one threefry block of
+//     the counter (0, i) (threefry.cuh), so a thread computes its
+//     estimator's five draws of batch k itself: the reservoir's int64
+//     randint t (two 64-bit words, jax's span arithmetic in native unsigned
+//     64-bit), the coin (uniform) and phi's two 32-bit words. The batch's
+//     keys (fold_in(key, step0 + k), then the splits of bulk_update_all,
+//     step2_level2 and randint) and its reservoir counts (m_before, totals:
+//     prefix sums of n_valids over m_seen) are derived once per CTA into
+//     shared memory. The step-1 selects (replace, the selected edge, f1_bpos)
+//     follow from t. No (K, r) draw or select is ever materialised.
+//   * Searches from shared memory (search.cuh). Each CTA holds a sample of
+//     SAMPLE keys of each of the batch's three sorted structures (key_desc,
+//     key_rank, ekey), searches it first and finishes in an L2 window of
+//     step - 1 keys. The paired bounds share one descent: Q1's (lo_u, hi_u)
+//     and (lo_v, hi_v), step 3's (lt, le). Each thread carries EST = 2
+//     estimators, so Q1 keeps four descents in flight. A search whose
+//     answer is masked (no f1, no take, no wedge) loads nothing.
+//   * Occupancy and L1 over sample size (tools/fused_sweep.py on the H100):
+//     the samples take 24 KiB a CTA and registers are capped at 64, so four
+//     CTAs fit an SM and leave up to 156 KB of its 256 KB to the L1 cache,
+//     which can hold the upper levels of the L2 windows. Larger samples cost more L1
+//     than they save probes (2048 keys at four CTAs an SM ran 1.5x slower);
+//     two CTAs an SM (4096 keys, 91 registers) ran 1.4x slower.
+//   * Batch-major order: one launch per batch on a persistent grid. While
+//     every estimator walks batch k, only that batch's structures (about
+//     40 MiB at s = 2^20) compete for the 50 MB L2, and each CTA loads its
+//     samples once per batch. The state moves through HBM once per batch
+//     (about 88 MB at r = 2^21, 26 us at 3.35 TB/s); launch k > 0 updates
+//     the output in place.
 //
-// Bound on the H100: the least traffic is the state and the per-(batch,
-// estimator) inputs read once, the structures read once and the state written
-// once. What it waits on is latency: about 6 * log2(2s) dependent L2 loads per
-// estimator per batch.
+// Per batch and estimator: step-1 replace; Q1 rank/degree as two pairs of
+// lower bounds over key_desc; chi update; coin < chi+ / max(chi, 1) in IEEE
+// float (the division is a correctly rounded '/', never __fdividef, and the
+// file is built without --use_fast_math); phi by the uint32 randint span
+// arithmetic; the Q2 decode as one lower bound over key_rank; the step-3
+// closing probe as a lower and an upper bound over ekey under the
+// p3 > f2_bpos rule.
+//
+// Bound on the H100: the least traffic is the state read and written once,
+// each batch's structures and edges read once (0.12 ms at the full shape);
+// the threefry blocks (5 per estimator and batch, about 80 32-bit
+// operations each) take less. What it waits on is the latency of the
+// searches' dependent loads: about 10 shared-memory probes, then 11 probes
+// in L1 or L2 per descent.
 
 #include <cuda_runtime.h>
-#include <stdint.h>
+
+#include <atomic>
+
+#include "search.cuh"
+#include "threefry.cuh"
 
 namespace {
+
+constexpr int THREADS = 256;
+constexpr int EST = 2;        // estimators a thread carries
+constexpr int SAMPLE = 1024;  // keys in each of the three shared samples
+constexpr int MIN_CTAS = 4;   // CTAs an SM: caps registers at 65536 / (MIN_CTAS * THREADS)
+constexpr size_t SMEM = 3 * SAMPLE * sizeof(long long);
 
 __device__ __forceinline__ long long pack2(int hi, int lo) {
   // (hi << 32) | lo with lo sign-extended, exactly as the reference's pack2
@@ -39,148 +77,226 @@ __device__ __forceinline__ long long pack2(int hi, int lo) {
                      (unsigned long long)(long long)lo);
 }
 
-__device__ __forceinline__ int lower_bound(const long long* __restrict__ a,
-                                           int n, long long x) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    int mid = lo + ((hi - lo) >> 1);
-    if (a[mid] < x) lo = mid + 1; else hi = mid;
-  }
-  return lo;
+// What every estimator of one batch draws from.
+struct Batch {
+  uint2 t_hi, t_lo;      // randint64's two word keys (split of bulk_update_all's k1)
+  uint2 coin;            // step2_level2's coin key
+  uint2 phi_hi, phi_lo;  // randint32's two word keys (split of the phi key)
+  unsigned long long m_before, span, mult;  // span = max(totals, 1), mult = (2^32 % span)^2 % span
+  int n_valid;
+  bool any;  // totals > 0
+};
+
+// The keys of batch k: fold_in(key, step), split into bulk_update_all's
+// (k1, k2); k1 feeds randint64 (its own split into the hi and lo word
+// keys), k2 splits into step 2's (coin, phi) keys, and phi's randint32
+// splits its key once more.
+__device__ Batch batch_keys(const long long* key, long long step, const int* n_valids,
+                            const long long* m_seen, int k) {
+  Batch b;
+  const uint2 root = make_uint2((unsigned)key[0], (unsigned)key[1]);
+  const uint2 bk = threefry::fold_in(root, (unsigned)step);
+  const uint2 k1 = threefry::split(bk, 0), k2 = threefry::split(bk, 1);
+  b.t_hi = threefry::split(k1, 0);
+  b.t_lo = threefry::split(k1, 1);
+  b.coin = threefry::split(k2, 0);
+  const uint2 kphi = threefry::split(k2, 1);
+  b.phi_hi = threefry::split(kphi, 0);
+  b.phi_lo = threefry::split(kphi, 1);
+  long long m = *m_seen;
+  for (int j = 0; j < k; ++j) m += n_valids[j];
+  const long long total = m + n_valids[k];
+  b.m_before = (unsigned long long)m;
+  b.n_valid = n_valids[k];
+  b.any = total > 0;
+  b.span = (unsigned long long)(total > 0 ? total : 1);
+  const unsigned long long mult = (1ull << 32) % b.span;
+  b.mult = (mult * mult) % b.span;  // wraps at 2^64, as jax's uint64 product
+  return b;
 }
 
-__device__ __forceinline__ int upper_bound(const long long* __restrict__ a,
-                                           int lo, int n, long long x) {
-  int hi = n;
-  while (lo < hi) {
-    int mid = lo + ((hi - lo) >> 1);
-    if (a[mid] <= x) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-__global__ void fused_ingest_kernel(
-    const int* __restrict__ f1, const int* __restrict__ chi,
-    const int* __restrict__ f2, const unsigned char* __restrict__ has_f3,
-    const long long* __restrict__ key_desc,
-    const long long* __restrict__ key_rank, const int* __restrict__ src,
-    const int* __restrict__ dst, const int* __restrict__ pos,
-    const long long* __restrict__ ekey, const int* __restrict__ epos,
-    const unsigned char* __restrict__ replace, const int* __restrict__ w_sel,
-    const int* __restrict__ f1_bpos, const float* __restrict__ coin,
-    const unsigned* __restrict__ phi_hi, const unsigned* __restrict__ phi_lo,
-    int* __restrict__ f1_out, int* __restrict__ chi_out,
-    int* __restrict__ f2_out, unsigned char* __restrict__ has_f3_out, int r,
-    int n_batches, int s) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= r) return;
+// Batch k of the chunk for every estimator. f1 .. has_f3 may alias the
+// outputs (launches k > 0 update in place).
+__global__ void __launch_bounds__(THREADS, MIN_CTAS)
+fused_batch_kernel(const int* f1, const int* chi, const int* f2, const unsigned char* has_f3,
+                   int* f1_out, int* chi_out, int* f2_out, unsigned char* has_f3_out,
+                   const long long* __restrict__ kd, const long long* __restrict__ kr,
+                   const int* __restrict__ src, const int* __restrict__ dst,
+                   const int* __restrict__ pos, const long long* __restrict__ ek,
+                   const int* __restrict__ epos, const int* __restrict__ W,
+                   const int* __restrict__ n_valids, const long long* __restrict__ m_seen,
+                   const long long* __restrict__ key, long long step0, int k, int r, int s) {
+  extern __shared__ __align__(16) long long smem[];
+  __shared__ Batch shared_batch;
   const int s2 = 2 * s;
-  int u = f1[2 * i], v = f1[2 * i + 1];
-  int c = chi[i];
-  int a = f2[2 * i], b = f2[2 * i + 1];
-  bool h = has_f3[i] != 0;
+  if (threadIdx.x == 0) shared_batch = batch_keys(key, step0 + k, n_valids, m_seen, k);
+  const search::Sample sd = search::load_sample<THREADS>(smem, SAMPLE, kd, s2);
+  const search::Sample sr = search::load_sample<THREADS>(smem + SAMPLE, SAMPLE, kr, s2);
+  const search::Sample se = search::load_sample<THREADS>(smem + 2 * SAMPLE, SAMPLE, ek, s);
+  __syncthreads();
+  const Batch& bt = shared_batch;
 
-  for (int k = 0; k < n_batches; ++k) {
-    const long long o = (long long)k * r + i;
-    // --- step 1: reservoir selects (decisions precomputed) ---
-    if (replace[o]) {
-      u = w_sel[2 * o];
-      v = w_sel[2 * o + 1];
-      c = 0;
-      a = -1;
-      b = -1;
-      h = false;
+  const long long per_cta = (long long)THREADS * EST;
+  for (long long base = (long long)blockIdx.x * per_cta; base < r;
+       base += (long long)gridDim.x * per_cta) {
+    int i[EST], u[EST], v[EST], c[EST], a[EST], b[EST], f1b[EST];
+    bool live[EST], h[EST];
+    float coin[EST];
+    unsigned ph[EST], pl[EST];
+
+    // --- state, draws and step 1: the reservoir over E u W ---
+#pragma unroll
+    for (int j = 0; j < EST; ++j) {
+      i[j] = (int)(base + threadIdx.x + (long long)j * THREADS);
+      live[j] = i[j] < r;
+      const int e = live[j] ? i[j] : 0;
+      u[j] = live[j] ? f1[2 * e] : -1;
+      v[j] = live[j] ? f1[2 * e + 1] : -1;
+      c[j] = live[j] ? chi[e] : 0;
+      a[j] = live[j] ? f2[2 * e] : -1;
+      b[j] = live[j] ? f2[2 * e + 1] : -1;
+      h[j] = live[j] && has_f3[e] != 0;
+      // t ~ randint64(0, max(totals, 1)): jax's two-word span arithmetic
+      const unsigned long long w_hi = threefry::bits64(bt.t_hi, (unsigned)e);
+      const unsigned long long w_lo = threefry::bits64(bt.t_lo, (unsigned)e);
+      const unsigned long long t = ((w_hi % bt.span) * bt.mult + w_lo % bt.span) % bt.span;
+      const bool replace = live[j] && bt.any && t >= bt.m_before;
+      long long d = (long long)t - (long long)bt.m_before;
+      d = d < 0 ? 0 : d;
+      const long long cap = bt.n_valid > 1 ? bt.n_valid - 1 : 0;
+      const int idx = (int)(d < cap ? d : cap);
+      f1b[j] = replace ? idx : -1;
+      if (replace) {
+        u[j] = W[2 * idx];
+        v[j] = W[2 * idx + 1];
+        c[j] = 0;
+        a[j] = b[j] = -1;
+        h[j] = false;
+      }
+      coin[j] = threefry::uniform(bt.coin, (unsigned)e);
+      ph[j] = threefry::bits32(bt.phi_hi, (unsigned)e);
+      pl[j] = threefry::bits32(bt.phi_lo, (unsigned)e);
     }
-    const int f1b = f1_bpos[o];
-    const bool have_f1 = u >= 0;
 
-    // --- step 2: Q1 rank/degree (lt only) ---
-    const long long* kd = key_desc + (long long)k * s2;
-    const int hi_u = lower_bound(kd, s2, pack2(u, (s - 1) - f1b));
-    const int hi_v = lower_bound(kd, s2, pack2(v, (s - 1) - f1b));
-    const int lo_u = lower_bound(kd, s2, pack2(u, 0));
-    const int lo_v = lower_bound(kd, s2, pack2(v, 0));
-    const int ld = have_f1 ? hi_u - lo_u : 0;
-    const int rd = have_f1 ? hi_v - lo_v : 0;
-    const int chi_plus = ld + rd;
-    const int chi_new = c + chi_plus;
-    const float p_new = (float)chi_plus / fmaxf((float)chi_new, 1.0f);
-    bool take = have_f1 && chi_plus > 0 && coin[o] < p_new;
-
-    // --- phi ~ randint(0, max(chi+, 1)) replayed on the raw bits ---
-    const unsigned span = (unsigned)(chi_plus > 1 ? chi_plus : 1);
-    unsigned m = 65536u % span;
-    m = (m * m) % span;
-    const unsigned off = ((phi_hi[o] % span) * m + (phi_lo[o] % span)) % span;
-    const int phi = (int)off;
-
-    // --- Q2 decode via the (src, rank) naming system ---
-    const int t_src = phi < ld ? u : v;
-    const int t_rank = phi < ld ? phi : phi - ld;
-    const long long qk = pack2(t_src, t_rank);
-    const long long* kr = key_rank + (long long)k * s2;
-    const int lt = lower_bound(kr, s2, qk);
-    const int j = lt < s2 - 1 ? lt : s2 - 1;
-    const bool found = lt < s2 && kr[j] == qk;
-    const long long row = (long long)k * s2 + j;
-    take = take && found;
-    int f2_bpos = -1;
-    if (take) {
-      const int ca = src[row], cb = dst[row];
-      a = ca < cb ? ca : cb;
-      b = ca < cb ? cb : ca;
-      f2_bpos = pos[row];
-      h = false;
+    // --- step 2, Q1: rank/degree of both f1 endpoints, one descent a pair ---
+    long long x1[2 * EST], x2[2 * EST];
+    bool act[2 * EST];
+    int lo[2 * EST], hi[2 * EST];
+#pragma unroll
+    for (int j = 0; j < EST; ++j) {
+      const int off = (s - 1) - f1b[j];
+      x1[2 * j] = pack2(u[j], 0);
+      x2[2 * j] = pack2(u[j], off);
+      x1[2 * j + 1] = pack2(v[j], 0);
+      x2[2 * j + 1] = pack2(v[j], off);
+      act[2 * j] = act[2 * j + 1] = u[j] >= 0;
     }
-    c = chi_new;
+    search::two_level<2 * EST, false>(sd, kd, s2, x1, x2, act, lo, hi);
 
-    // --- step 3: closing-edge probe ---
-    const bool have_wedge = u >= 0 && a >= 0;
-    const bool u_shared = (u == a) || (u == b);
-    const int o1 = u_shared ? v : u;
-    const bool a_shared = (a == u) || (a == v);
-    const int o2 = a_shared ? b : a;
-    const long long qe = pack2(o1 < o2 ? o1 : o2, o1 < o2 ? o2 : o1);
-    const long long* ek = ekey + (long long)k * s;
-    const int lt3 = lower_bound(ek, s, qe);
-    const int le3 = upper_bound(ek, lt3, s, qe);
-    const int p3 = epos[(long long)k * s + (le3 > 0 ? le3 - 1 : 0)];
-    h = h || (have_wedge && le3 > lt3 && p3 > f2_bpos);
+    long long qk[EST];
+    bool take[EST];
+    int chi_new[EST], f2_bpos[EST];
+#pragma unroll
+    for (int j = 0; j < EST; ++j) {
+      const bool have_f1 = u[j] >= 0;
+      const int ld = have_f1 ? hi[2 * j] - lo[2 * j] : 0;
+      const int rd = have_f1 ? hi[2 * j + 1] - lo[2 * j + 1] : 0;
+      const int chi_plus = ld + rd;
+      chi_new[j] = c[j] + chi_plus;
+      const float p_new = (float)chi_plus / fmaxf((float)chi_new[j], 1.0f);
+      take[j] = have_f1 && chi_plus > 0 && coin[j] < p_new;
+      // phi ~ randint32(0, max(chi+, 1)) on the raw words
+      const unsigned span = (unsigned)(chi_plus > 1 ? chi_plus : 1);
+      unsigned m = 65536u % span;
+      m = (m * m) % span;
+      const int phi = (int)(((ph[j] % span) * m + (pl[j] % span)) % span);
+      const int t_src = phi < ld ? u[j] : v[j];
+      const int t_rank = phi < ld ? phi : phi - ld;
+      qk[j] = pack2(t_src, t_rank);
+      f2_bpos[j] = -1;
+    }
+
+    // --- Q2: decode (src, rank) to the new level-2 edge ---
+    int lt2[EST], lt2b[EST];
+    search::two_level<EST, false>(sr, kr, s2, qk, qk, take, lt2, lt2b);
+#pragma unroll
+    for (int j = 0; j < EST; ++j) {
+      if (take[j]) {
+        const int row = lt2[j] < s2 - 1 ? lt2[j] : s2 - 1;
+        if (lt2[j] < s2 && kr[row] == qk[j]) {
+          const int ca = src[row], cb = dst[row];
+          a[j] = ca < cb ? ca : cb;
+          b[j] = ca < cb ? cb : ca;
+          f2_bpos[j] = pos[row];
+          h[j] = false;
+        }
+      }
+      c[j] = chi_new[j];
+    }
+
+    // --- step 3: the closing-edge probe, (lt, le) in one descent ---
+    long long qe[EST];
+    bool wedge[EST];
+#pragma unroll
+    for (int j = 0; j < EST; ++j) {
+      wedge[j] = u[j] >= 0 && a[j] >= 0;
+      const int o1 = (u[j] == a[j] || u[j] == b[j]) ? v[j] : u[j];
+      const int o2 = (a[j] == u[j] || a[j] == v[j]) ? b[j] : a[j];
+      qe[j] = pack2(o1 < o2 ? o1 : o2, o1 < o2 ? o2 : o1);
+    }
+    int lt3[EST], le3[EST];
+    search::two_level<EST, true>(se, ek, s, qe, qe, wedge, lt3, le3);
+#pragma unroll
+    for (int j = 0; j < EST; ++j) {
+      if (wedge[j] && le3[j] > lt3[j]) h[j] = h[j] || epos[le3[j] - 1] > f2_bpos[j];
+      if (live[j]) {
+        f1_out[2 * i[j]] = u[j];
+        f1_out[2 * i[j] + 1] = v[j];
+        chi_out[i[j]] = c[j];
+        f2_out[2 * i[j]] = a[j];
+        f2_out[2 * i[j] + 1] = b[j];
+        has_f3_out[i[j]] = h[j] ? 1 : 0;
+      }
+    }
   }
-  f1_out[2 * i] = u;
-  f1_out[2 * i + 1] = v;
-  chi_out[i] = c;
-  f2_out[2 * i] = a;
-  f2_out[2 * i + 1] = b;
-  has_f3_out[i] = h ? 1 : 0;
 }
+
+std::atomic<long long> resident[search::MAX_DEVICES];
 
 }  // namespace
 
+// One launch per batch; *launches is the number of kernels queued (K, or
+// fewer on an error). r, K and s are at least 1.
 extern "C" int fused_ingest(const void* f1, const void* chi, const void* f2,
                             const void* has_f3, const void* key_desc,
                             const void* key_rank, const void* src,
                             const void* dst, const void* pos, const void* ekey,
-                            const void* epos, const void* replace,
-                            const void* w_sel, const void* f1_bpos,
-                            const void* coin, const void* phi_hi,
-                            const void* phi_lo, void* f1_out, void* chi_out,
-                            void* f2_out, void* has_f3_out, long long r,
-                            long long n_batches, long long s, void* stream,
+                            const void* epos, const void* Ws, const void* n_valids,
+                            const void* m_seen, const void* key, void* f1_out,
+                            void* chi_out, void* f2_out, void* has_f3_out, long long r,
+                            long long n_batches, long long s, long long step0, void* stream,
                             int* launches) {
   *launches = 0;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((r + threads - 1) / threads);
-  fused_ingest_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int*)f1, (const int*)chi, (const int*)f2,
-      (const unsigned char*)has_f3, (const long long*)key_desc,
-      (const long long*)key_rank, (const int*)src, (const int*)dst,
-      (const int*)pos, (const long long*)ekey, (const int*)epos,
-      (const unsigned char*)replace, (const int*)w_sel, (const int*)f1_bpos,
-      (const float*)coin, (const unsigned*)phi_hi, (const unsigned*)phi_lo,
-      (int*)f1_out, (int*)chi_out, (int*)f2_out, (unsigned char*)has_f3_out,
-      (int)r, (int)n_batches, (int)s);
-  const cudaError_t err = cudaGetLastError();
-  *launches = err == cudaSuccess;
-  return (int)err;
+  long long ctas = 0;
+  cudaError_t err = search::resident_ctas(fused_batch_kernel, THREADS, SMEM, resident, &ctas);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (r + (long long)THREADS * EST - 1) / ((long long)THREADS * EST);
+  const unsigned blocks = (unsigned)(tiles < ctas ? tiles : ctas);
+  for (long long k = 0; k < n_batches; ++k) {
+    const bool first = k == 0;
+    fused_batch_kernel<<<blocks, THREADS, SMEM, (cudaStream_t)stream>>>(
+        (const int*)(first ? f1 : f1_out), (const int*)(first ? chi : chi_out),
+        (const int*)(first ? f2 : f2_out),
+        (const unsigned char*)(first ? has_f3 : has_f3_out), (int*)f1_out, (int*)chi_out,
+        (int*)f2_out, (unsigned char*)has_f3_out, (const long long*)key_desc + k * 2 * s,
+        (const long long*)key_rank + k * 2 * s, (const int*)src + k * 2 * s,
+        (const int*)dst + k * 2 * s, (const int*)pos + k * 2 * s,
+        (const long long*)ekey + k * s, (const int*)epos + k * s, (const int*)Ws + k * 2 * s,
+        (const int*)n_valids, (const long long*)m_seen, (const long long*)key, step0, (int)k,
+        (int)r, (int)s);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    ++*launches;
+  }
+  return 0;
 }

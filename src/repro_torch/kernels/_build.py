@@ -5,8 +5,9 @@ with a plain C interface (one ``extern "C"`` entry per kernel, returning
 ``cudaGetLastError()`` and, through its last argument, how many CUDA kernels
 it queued) and loaded with ``ctypes``. The build happens at first
 use, from the sources in the checkout only, into ``build/repro_torch/`` at the
-root of the checkout; the library's file name carries a hash of its source
-and flags, so an edited source is rebuilt and a stale library never loads.
+root of the checkout; the library's file name carries a hash of its source,
+the shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header is rebuilt and a stale library never loads.
 ``build()`` compiles several sources at once, one ``nvcc`` process each.
 
 Nothing here runs at import: the CPU tests import every module, and this
@@ -66,8 +67,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library of ``csrc/<name>.cu``, named by a hash of that source,
+    every ``csrc/*.cuh`` header (any source may include any of them) and
+    the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

@@ -1,10 +1,16 @@
 """fused_ingest: apply a K-batch chunk to the estimator state in one kernel
-(CUDA kernel ``csrc/fused_ingest.cu``; the counterpart of
-``repro/kernels/fused_ingest.py``).
+call that draws the chunk's randomness itself (CUDA kernel
+``csrc/fused_ingest.cu``; the counterpart of ``repro/kernels/fused_ingest.py``).
 
 Contract: bit-identical to the scan of ``bulk_update_all`` over the same
-chunk (``repro_torch.kernels.ref.fused_ingest_ref``), given the chunk's
-hoisted randomness and its K rank structures from ``rank_all_chunk``.
+chunk (``repro_torch.kernels.ref.fused_ingest_ref``), given the chunk's K
+rank structures from ``rank_all_chunk``, its edges, the stream key and the
+chunk's first step.
+
+``fused_ingest_hoisted`` is the batch loop on hoisted draws and selects, the
+form of the Pallas kernel's arguments; ``fused_ingest_plain``, the kernel's
+plain version, computes those draws and selects (``core.bulk.chunk_draws``)
+and runs it.
 """
 from __future__ import annotations
 
@@ -15,15 +21,17 @@ import torch
 from repro_torch.kernels import _build
 
 Tensor = torch.Tensor
-_ARGS = [ctypes.c_void_p] * 21 + [ctypes.c_int64] * 3 + [ctypes.c_void_p, _build.QUEUED]
+_ARGS = [ctypes.c_void_p] * 19 + [ctypes.c_int64] * 4 + [ctypes.c_void_p, _build.QUEUED]
 
 
-def fused_ingest_plain(
+def fused_ingest_hoisted(
     f1, chi, f2, has_f3, key_desc, key_rank, src, dst, pos, ekey, epos,
     replace, w_sel, f1_bpos, coin, phi_hi, phi_lo,
 ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
-    """The K-batch loop in plain PyTorch: ``core.bulk.fused_batch`` per batch
-    with ``torch.searchsorted`` searches."""
+    """The K-batch loop on hoisted draws in plain PyTorch: ``core.bulk.fused_batch``
+    per batch with ``torch.searchsorted`` searches. Per (batch, estimator):
+    replace (K, r) bool, w_sel (K, r, 2) int32, f1_bpos (K, r) int32, coin
+    (K, r) float32, phi_hi/phi_lo (K, r) int32 carrying the uint32 bits."""
     from repro_torch.core.bulk import fused_batch
     from repro_torch.core.rank import RankStructure
 
@@ -37,25 +45,39 @@ def fused_ingest_plain(
     return f1, chi, f2, has_f3
 
 
+def fused_ingest_plain(
+    f1, chi, f2, has_f3, key_desc, key_rank, src, dst, pos, ekey, epos,
+    Ws, n_valids, m_seen, key, step0: int,
+) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The kernel's function in plain PyTorch: the chunk's draws and step-1
+    selects (``core.bulk.chunk_draws``), then ``fused_ingest_hoisted``."""
+    from repro_torch.core.bulk import chunk_draws
+    from repro_torch.core.state import EstimatorState
+
+    draws = chunk_draws(EstimatorState(f1, chi, f2, has_f3, m_seen), Ws, n_valids, key, step0)
+    return fused_ingest_hoisted(f1, chi, f2, has_f3, key_desc, key_rank, src, dst, pos,
+                                ekey, epos, *draws)
+
+
 def fused_ingest(
     f1, chi, f2, has_f3, key_desc, key_rank, src, dst, pos, ekey, epos,
-    replace, w_sel, f1_bpos, coin, phi_hi, phi_lo,
+    Ws, n_valids, m_seen, key, step0: int,
 ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
     """Apply a K-batch chunk to the state; returns new (f1, chi, f2, has_f3).
 
     State: f1/f2 (r, 2) int32, chi (r,) int32, has_f3 (r,) bool. Structures:
     key_desc/key_rank (K, 2s) int64, src/dst/pos (K, 2s) int32, ekey (K, s)
-    int64, epos (K, s) int32. Per (batch, estimator): replace (K, r) bool,
-    w_sel (K, r, 2) int32, f1_bpos (K, r) int32, coin (K, r) float32,
-    phi_hi/phi_lo (K, r) int32 carrying the uint32 bits. The caller owns the
-    m_seen update."""
+    int64, epos (K, s) int32. The chunk: Ws (K, s, 2) int32, n_valids (K,)
+    int32, m_seen the 0-d int64 stream length before it, key the (2,) int64
+    stream key, step0 the chunk's first step (batch k draws from
+    ``fold_in(key, step0 + k)``). Everything stays on the device: no host
+    sync. The caller owns the m_seen update."""
     if f1.device.type == "cpu":
-        return fused_ingest_plain(
-            f1, chi, f2, has_f3, key_desc, key_rank, src, dst, pos, ekey, epos,
-            replace, w_sel, f1_bpos, coin, phi_hi, phi_lo)
+        return fused_ingest_plain(f1, chi, f2, has_f3, key_desc, key_rank, src, dst, pos,
+                                  ekey, epos, Ws, n_valids, m_seen, key, step0)
     dev = f1.device
-    K, r = replace.shape
-    s = ekey.shape[1]
+    K, s = Ws.shape[0], Ws.shape[1]
+    r = f1.shape[0]
     i32, i64 = torch.int32, torch.int64
     for t, name, dt, shape in (
         (f1, "f1", i32, (r, 2)), (chi, "chi", i32, (r,)), (f2, "f2", i32, (r, 2)),
@@ -63,25 +85,26 @@ def fused_ingest(
         (key_desc, "key_desc", i64, (K, 2 * s)), (key_rank, "key_rank", i64, (K, 2 * s)),
         (src, "src", i32, (K, 2 * s)), (dst, "dst", i32, (K, 2 * s)),
         (pos, "pos", i32, (K, 2 * s)), (ekey, "ekey", i64, (K, s)),
-        (epos, "epos", i32, (K, s)), (replace, "replace", torch.bool, (K, r)),
-        (w_sel, "w_sel", i32, (K, r, 2)), (f1_bpos, "f1_bpos", i32, (K, r)),
-        (coin, "coin", torch.float32, (K, r)), (phi_hi, "phi_hi", i32, (K, r)),
-        (phi_lo, "phi_lo", i32, (K, r)),
+        (epos, "epos", i32, (K, s)), (Ws, "Ws", i32, (K, s, 2)),
+        (n_valids, "n_valids", i32, (K,)), (m_seen, "m_seen", i64, ()),
+        (key, "key", i64, (2,)),
     ):
         _build.check(t, name, dt, shape, dev)
-    if r >= 2**31 or 2 * s >= 2**31:
-        raise ValueError("fused_ingest: r and 2s must fit int32")
+    if s < 1 or 2 * s >= 2**31 or r >= 2**31:
+        raise ValueError("fused_ingest: need 1 <= s and r, 2s below 2^31")
     f1_out = torch.empty_like(f1)
     chi_out = torch.empty_like(chi)
     f2_out = torch.empty_like(f2)
     has_f3_out = torch.empty_like(has_f3)
+    if K == 0 or r == 0:
+        return f1_out.copy_(f1), chi_out.copy_(chi), f2_out.copy_(f2), has_f3_out.copy_(has_f3)
     _build.launch(
         "fused_ingest", _build.load("fused_ingest", "fused_ingest", _ARGS),
         f1.data_ptr(), chi.data_ptr(), f2.data_ptr(), has_f3.data_ptr(),
         key_desc.data_ptr(), key_rank.data_ptr(), src.data_ptr(), dst.data_ptr(),
-        pos.data_ptr(), ekey.data_ptr(), epos.data_ptr(), replace.data_ptr(),
-        w_sel.data_ptr(), f1_bpos.data_ptr(), coin.data_ptr(), phi_hi.data_ptr(),
-        phi_lo.data_ptr(), f1_out.data_ptr(), chi_out.data_ptr(), f2_out.data_ptr(),
-        has_f3_out.data_ptr(), r, K, s, _build.stream_handle(dev),
+        pos.data_ptr(), ekey.data_ptr(), epos.data_ptr(), Ws.data_ptr(),
+        n_valids.data_ptr(), m_seen.data_ptr(), key.data_ptr(), f1_out.data_ptr(),
+        chi_out.data_ptr(), f2_out.data_ptr(), has_f3_out.data_ptr(), r, K, s, int(step0),
+        _build.stream_handle(dev),
     )
     return f1_out, chi_out, f2_out, has_f3_out

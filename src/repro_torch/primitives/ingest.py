@@ -8,10 +8,11 @@
   "fused"   randomness, step-1 selects and all K rank structures hoisted out
             of the batch loop, then the per-batch residue in plain PyTorch
             (the counterpart of the reference's "xla").
-  "kernel"  the same hoisting with the structures built by the
-            ``bitonic_sort_tiles`` and ``segscan`` kernels and the batch loop
-            in the ``fused_ingest`` kernel (the counterpart of "pallas").
-            On CPU tensors each kernel wrapper runs its plain version.
+  "kernel"  the structures built by the ``bitonic_sort_tiles`` and
+            ``segscan`` kernels, and the batch loop, its draws and its
+            step-1 selects in the ``fused_ingest`` kernel (the counterpart
+            of "pallas", which reads hoisted draws). On CPU tensors each
+            kernel wrapper runs its plain version.
   "auto"    "kernel" for CUDA tensors, "fused" for CPU tensors.
 
 ``randint_from_bits`` replays ``jax.random.randint``'s span arithmetic on

@@ -21,11 +21,15 @@ from repro.core.state import init_state as jax_init_state  # noqa: E402
 from repro.kernels import ops  # noqa: E402
 from repro.kernels import ref as kref  # noqa: E402
 from repro_torch import rng  # noqa: E402
-from repro_torch.core.bulk import chunk_inputs  # noqa: E402
+from repro_torch.core.bulk import bulk_update_chunk, chunk_draws, chunk_structures  # noqa: E402
 from repro_torch.core.state import init_state  # noqa: E402
 from repro_torch.kernels import CUDA_LAUNCHES, LAUNCHES, _build, ref  # noqa: E402
 from repro_torch.kernels.bitonic import bitonic_sort_tiles, bitonic_sort_tiles_plain  # noqa: E402
-from repro_torch.kernels.fused_ingest import fused_ingest, fused_ingest_plain  # noqa: E402
+from repro_torch.kernels.fused_ingest import (  # noqa: E402
+    fused_ingest,
+    fused_ingest_hoisted,
+    fused_ingest_plain,
+)
 from repro_torch.kernels.multisearch import multisearch_counts, multisearch_counts_plain  # noqa: E402
 from repro_torch.kernels.segment_sum import segment_sum, segment_sum_plain  # noqa: E402
 from repro_torch.kernels.segscan import segscan, segscan_plain  # noqa: E402
@@ -130,20 +134,24 @@ def test_bitonic_plain_vs_jax_ref(n, tile):
 
 @pytest.mark.parametrize("r,s,K", [(33, 6, 3), (200, 40, 4), (64, 16, 1)])
 def test_fused_ingest_plain_vs_jax_ref(r, s, K):
-    """chunk_inputs + the fused loop's plain version against the JAX scan of
-    bulk_update_all over the same chunk."""
+    """The structures + the wrapper on CPU tensors (its plain version: the
+    chunk's draws and selects, then the hoisted loop) against the JAX scan
+    of bulk_update_all over the same chunk."""
     Ws, nv = _adversarial_stream(r, s, K, seed=r)
     want = kref.fused_ingest_ref(jax_init_state(r), jnp.asarray(Ws), jnp.asarray(nv),
                                  jax.random.PRNGKey(r), 5)
     st = init_state(r)
-    args, m_out = chunk_inputs(st, T(Ws), T(nv), rng.PRNGKey(r), 5, use_kernels=False)
-    got = fused_ingest(st.f1, st.chi, st.f2, st.has_f3, *args)
+    structs = chunk_structures(T(Ws), T(nv), use_kernels=False)
+    got = fused_ingest(st.f1, st.chi, st.f2, st.has_f3, *structs, T(Ws), T(nv), st.m_seen,
+                       rng.PRNGKey(r), 5)
     for f, g in zip(FIELDS, got):
         np.testing.assert_array_equal(np.asarray(getattr(want, f)), g.numpy(), err_msg=f)
-    assert int(m_out) == int(want.m_seen)
+    chunk = bulk_update_chunk(st, T(Ws), T(nv), rng.PRNGKey(r), 5, backend="kernel")
+    assert int(chunk.m_seen) == int(want.m_seen)
     port_ref = ref.fused_ingest_ref(init_state(r), T(Ws), T(nv), rng.PRNGKey(r), 5)
     for f in FIELDS:
         np.testing.assert_array_equal(getattr(port_ref, f).numpy(), np.asarray(getattr(want, f)))
+        np.testing.assert_array_equal(getattr(chunk, f).numpy(), np.asarray(getattr(want, f)))
 
 
 def _segment_sum_families(n, m, d, seed):
@@ -198,8 +206,9 @@ def test_plain_versions_vs_pallas_interpret():
     r, s, K = 40, 8, 2
     Ws, nv = _adversarial_stream(r, s, K, seed=3)
     st = init_state(r)
-    args, _ = chunk_inputs(st, T(Ws), T(nv), rng.PRNGKey(3), 0, use_kernels=False)
-    plain = fused_ingest_plain(st.f1, st.chi, st.f2, st.has_f3, *args)
+    args = (*chunk_structures(T(Ws), T(nv), use_kernels=False),
+            *chunk_draws(st, T(Ws), T(nv), rng.PRNGKey(3), 0))
+    plain = fused_ingest_hoisted(st.f1, st.chi, st.f2, st.has_f3, *args)
     jargs = [jnp.asarray(a.numpy()) for a in args]
     jargs[-2:] = [a.astype(jnp.uint32) for a in jargs[-2:]]  # phi words as uint32
     js = jax_init_state(r)
@@ -256,7 +265,14 @@ def test_build_is_keyed_by_source_and_needs_nvcc(monkeypatch, tmp_path):
     (tmp_path / "segscan.cu").write_text("// one\n")
     one = _build.library_path("segscan")
     (tmp_path / "segscan.cu").write_text("// two\n")
-    assert _build.library_path("segscan") != one
+    two = _build.library_path("segscan")
+    assert two != one
+    # a shared header is part of every source's key
+    (tmp_path / "search.cuh").write_text("// h1\n")
+    h1 = _build.library_path("segscan")
+    assert h1 != two
+    (tmp_path / "search.cuh").write_text("// h2\n")
+    assert _build.library_path("segscan") != h1
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
@@ -344,13 +360,48 @@ def test_cuda_bitonic_launches_per_call(cuda, tile, most, monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("r,s,K", [(33, 6, 3), (5000, 512, 4)])
 def test_cuda_fused_ingest(cuda, r, s, K):
+    """The kernel, drawing its own randomness, against its plain version
+    (the hoisted draws and selects, then the hoisted loop) and against the
+    JAX scan of bulk_update_all; K launches per call."""
     Ws, nv = _adversarial_stream(r, s, K, seed=s)
+    want = kref.fused_ingest_ref(jax_init_state(r), jnp.asarray(Ws), jnp.asarray(nv),
+                                 jax.random.PRNGKey(s), 0)
     st = init_state(r, cuda)
-    args, _ = chunk_inputs(st, T(Ws).to(cuda), T(nv).to(cuda), rng.PRNGKey(s, cuda), 0,
-                           use_kernels=True)
-    for a, b in zip(fused_ingest(st.f1, st.chi, st.f2, st.has_f3, *args),
-                    fused_ingest_plain(st.f1, st.chi, st.f2, st.has_f3, *args)):
-        assert torch.equal(a, b)
+    Wt, nvt = T(Ws).to(cuda), T(nv).to(cuda)
+    args = (*chunk_structures(Wt, nvt, use_kernels=True), Wt, nvt, st.m_seen,
+            rng.PRNGKey(s, cuda), 0)
+    before = CUDA_LAUNCHES["fused_ingest"]
+    got = fused_ingest(st.f1, st.chi, st.f2, st.has_f3, *args)
+    assert CUDA_LAUNCHES["fused_ingest"] - before == K
+    for f, a, b in zip(FIELDS, got, fused_ingest_plain(st.f1, st.chi, st.f2, st.has_f3, *args)):
+        assert torch.equal(a, b), f
+        np.testing.assert_array_equal(a.cpu().numpy(), np.asarray(getattr(want, f)), err_msg=f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,s,K,m_seen,step0,empty", [
+    (513, 511, 4, 2**32 + 17, 2**32 - 2, (1,)),  # 64-bit spans, the fold-in wrap
+    (511, 512, 3, 0, 0, (0,)),  # a fresh state whose first batch is empty
+    (1537, 513, 2, 2**40, 7, ()),  # 2s around the kernel's 1024-key samples
+    (5000, 1023, 2, 123_456, 2**32 - 1, ()),  # s around them
+    (1025, 1025, 2, 3, 2**33, ()),
+])
+def test_cuda_fused_ingest_edges(cuda, r, s, K, m_seen, step0, empty):
+    """The kernel equals its plain version on a populated state at stream
+    lengths above 2^32 and at 0, across the 32-bit wrap of the fold-in
+    counter, with empty batches, r off the kernel's 512-estimator tile and
+    the structures below, at and above its shared samples."""
+    Ws, nv = _adversarial_stream(r, s, K, seed=r + s)
+    nv[list(empty)] = 0
+    Wt, nvt = T(Ws).to(cuda), T(nv).to(cuda)
+    key = rng.PRNGKey(s, cuda)
+    st = bulk_update_chunk(init_state(r, cuda), Wt, nvt, key, backend="kernel")
+    st = st._replace(m_seen=torch.tensor(m_seen, dtype=torch.int64, device=cuda)) if m_seen \
+        else init_state(r, cuda)
+    args = (st.f1, st.chi, st.f2, st.has_f3, *chunk_structures(Wt, nvt, use_kernels=True),
+            Wt, nvt, st.m_seen, key, step0)
+    for f, a, b in zip(FIELDS, fused_ingest(*args), fused_ingest_plain(*args)):
+        assert torch.equal(a, b), f
 
 
 @pytest.mark.cuda
