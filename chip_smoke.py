@@ -10,17 +10,23 @@ Phases, each of which raises on failure (nothing is caught):
   build      nvcc builds the five kernels from csrc/, in parallel;
   edges      each kernel against its plain version on the edge cases of the
              JAX package's oracle harness (tile sizes +-1, n = 0, q = 0,
-             all-equal, duplicate-heavy, negative and INF64 keys, segments
-             that cross CTA tiles; for the tile sort tiles below, at and 1-5
+             all-equal, duplicate-heavy, negative and INF64 keys; for both
+             segscan monoids (sum, max) n around the 8192-entry tile, 2^23 + 3
+             entries with no flag (the longest look-back), values at INT32_MIN
+             and INT32_MAX, segments that cross tiles and an unaligned view;
+             for the tile sort tiles below, at and 1-5
              merge passes above its 4096-entry block, ragged n, sorted and
              reversed input; for multisearch n below, at and above its
              8192-key sample, equal runs longer than the sample spacing,
              queries below, above and equal to every key and INT64 max; for
              segment_sum dropped ids, every row in one bin, n = 0, m = 0,
-             d = 1 and 2; for fused_ingest, which draws its own randomness,
-             stream lengths above 2^32 and at 0, the fold-in counter across
-             its 32-bit wrap, empty batches, r off its 512-estimator tile,
-             and 2s and s below, at and above its 1024-key samples), equal
+             d = 1 and 2, and 9,000,001 rows, past what its resident grid
+             holds in registers, with every id out of range, all in one bin,
+             d = 2 and an unaligned view; for fused_ingest, which draws its
+             own randomness, stream lengths above 2^32 and at 0, the fold-in
+             counter across its 32-bit wrap, empty batches, r off its
+             512-estimator tile, and 2s and s below, at and above its
+             1024-key samples), equal
              under each kernel's contract;
   golden     the kernel path on a small chunked stream with a ragged tail
              reproduces the JAX reference's final-state sha256 and estimate
@@ -55,13 +61,18 @@ Phases, each of which raises on failure (nothing is caught):
   kernels    each kernel and its plain version at the main path's full-size
              shapes: equal, and timed with CUDA events beside its bound and,
              where one PyTorch call computes the same function, that call;
-             the tile sort at both of its shapes (arc and edge tiles) and
-             multisearch at all three (Q1, Q2, step 3); for every kernel and
+             the tile sort at both of its shapes (arc and edge tiles),
+             multisearch at all three (Q1, Q2, step 3) and segscan at all
+             three (sum over K x 2s and over 2s, max over K x s, each beside
+             an unsegmented torch.cumsum); segment_sum beside index_add_ on
+             pre-filtered rows and over every row; for every kernel and
              shape the CUDA launches of one wrapper call, as its C entry
              reports them; then where one chunk's device time goes on the
              kernel route (structure build, fused_ingest), the plain
              route's chunk and its hoisted draws, and the ragged tail
-             batch's time;
+             batch's time; and the structure build and the tail's
+             per-batch update stage by stage (CUDA events between stages,
+             each replica held equal to the function it writes out);
   cli        python -m repro_torch.launch.stream prints the golden CLI lines
              (global and local).
 
@@ -134,6 +145,293 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 20, warmup: int = 2) -> float:
+    """Mean device milliseconds of ``fn()`` over ``reps`` back-to-back calls
+    with the host's cost kept out: every call is enqueued while the device
+    spins (``torch.cuda._sleep``) for longer than the host takes to enqueue
+    them, so the events around the calls time the device alone. A kernel
+    of tens of microseconds costs its wrapper about as much host time, and
+    ``time_ms`` then times the host. Raises if the enqueue outlasted the
+    spin (a call that waits on the device, or a full launch queue)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    torch.cuda._sleep(1_000_000)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    cycles_per_ms = 1_000_000 / ev[0].elapsed_time(ev[1])
+    for _ in range(3):
+        torch.cuda.synchronize()
+        ev[0].record()
+        torch.cuda._sleep(int(cycles_per_ms * (2 * host_ms + 1)))
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        ev[2].record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if host_ms < ev[0].elapsed_time(ev[1]):
+            return ev[1].elapsed_time(ev[2]) / reps
+    raise AssertionError(f"device_ms: enqueueing {reps} calls took {host_ms:.3f} ms, "
+                         "longer than the device's spin")
+
+
+def device_busy(fn, top: int = 8) -> dict:
+    """One call of ``fn`` under torch.profiler: the device's busy
+    milliseconds (the sum of its kernels' and memory operations' device
+    time), the count of those operations, and the ``top`` device operations
+    by their summed time (name cut to 90 characters, count, ms). The
+    profiler slows the host, so the call's own time comes from ``time_ms``,
+    not from here."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    return {"device_busy_ms": sum(us for _, us in by_name.values()) / 1e3,
+            "device_ops": sum(n for n, _ in by_name.values()),
+            "top": [[name[:90], n, us / 1e3] for name, (n, us) in ranked[:top]]}
+
+
+def stage_ms(run, reps: int = 5, warmup: int = 1) -> dict:
+    """Mean device milliseconds of each stage of ``run(mark)``, which calls
+    ``mark(name)`` at the end of each stage: a CUDA event is recorded there,
+    and a stage's time is the time from the previous event to its own.
+    Where the device is slower than the host issues its work (the structure
+    build), that is the device's time; where the host is slower (the
+    per-batch update, about 1,900 small ops), the device waits on it and the
+    stages read the host's pace: ``device_busy`` tells the two apart."""
+    import torch
+
+    for _ in range(warmup):
+        run(lambda name: None)
+    totals: dict = {}
+    for _ in range(reps):
+        marks = []
+
+        def mark(name, marks=marks):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((name, ev))
+
+        start = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        run(mark)
+        torch.cuda.synchronize()
+        prev = start
+        for name, ev in marks:
+            totals[name] = totals.get(name, 0.0) + prev.elapsed_time(ev)
+            prev = ev
+    return {name: t / reps for name, t in totals.items()}
+
+
+def structure_stages(Ws, n_valids, mark):
+    """``core.rank._rank_all_chunk_kernels`` written out op by op, with
+    ``mark`` after each stage, in the checkout's own kernels: the stability
+    patch runs ``segmented_max_scan`` where the checkout has it, else the
+    plain ``segmented_cummax`` split into its cumsum, its packing and its
+    cummax. Returns the RankStructure, which the caller holds against
+    ``rank_all_chunk``."""
+    import torch
+
+    from repro_torch.core.rank import INF64 as PAD
+    from repro_torch.core.rank import RankStructure, _inf_where, _next_pow2
+    from repro_torch.kernels import segscan as kseg
+    from repro_torch.kernels.bitonic import bitonic_sort_tiles
+    from repro_torch.primitives.segscan import segment_starts
+    from repro_torch.primitives.sort import pack2
+
+    K, s, _ = Ws.shape
+    dev = Ws.device
+    pos1 = torch.arange(s, dtype=torch.int32, device=dev)
+    nv = n_valids.to(torch.int64)[:, None]
+    valid_e = pos1[None, :] < nv
+    src = torch.cat([Ws[:, :, 0], Ws[:, :, 1]], dim=1)
+    dst = torch.cat([Ws[:, :, 1], Ws[:, :, 0]], dim=1)
+    pos2 = torch.cat([pos1, pos1])
+    valid_a = torch.cat([valid_e, valid_e], dim=1)
+    kd = _inf_where(valid_a, pack2(src, (s - 1) - pos2[None, :]))
+    mark("arc_keys")
+    tile = _next_pow2(2 * s)
+    kd_p = torch.full((K, tile), PAD, dtype=torch.int64, device=dev)
+    kd_p[:, : 2 * s] = kd
+    arc_p = torch.zeros((K, tile), dtype=torch.int32, device=dev)
+    arc_p[:, : 2 * s] = torch.arange(2 * s, dtype=torch.int32, device=dev)
+    mark("arc_padding")
+    ks, perm = bitonic_sort_tiles(kd_p.view(-1), arc_p.view(-1), tile)
+    mark("arc_tile_sort")
+    kd_s = ks.view(K, tile)[:, : 2 * s]
+    perm = perm.view(K, tile)[:, : 2 * s].to(torch.int64)
+    src_s = torch.gather(src, 1, perm)
+    dst_s = torch.gather(dst, 1, perm)
+    pos_s = torch.gather(pos2[None, :].expand(K, 2 * s), 1, perm)
+    mark("arc_gathers")
+    starts = segment_starts(src_s)
+    mark("segment_starts")
+    ones = torch.ones(K * 2 * s, dtype=torch.int32, device=dev)
+    rank_s = kseg.segscan(ones, starts.reshape(-1)).view(K, 2 * s) - 1
+    mark("segscan")
+    arc = torch.arange(2 * s, device=dev)[None, :]
+    kr = _inf_where(arc < 2 * nv, pack2(src_s, rank_s))
+    mark("key_rank")
+    emin = torch.minimum(Ws[:, :, 0], Ws[:, :, 1])
+    emax = torch.maximum(Ws[:, :, 0], Ws[:, :, 1])
+    ek = _inf_where(valid_e, pack2(emin, emax))
+    tile_e = _next_pow2(s)
+    ek_p = torch.full((K, tile_e), PAD, dtype=torch.int64, device=dev)
+    ek_p[:, :s] = ek
+    ep_p = torch.zeros((K, tile_e), dtype=torch.int32, device=dev)
+    ep_p[:, :s] = pos1
+    mark("edge_keys_and_padding")
+    eks, eps = bitonic_sort_tiles(ek_p.view(-1), ep_p.view(-1), tile_e)
+    mark("edge_tile_sort")
+    ek_s = eks.view(K, tile_e)[:, :s]
+    epos_s = eps.view(K, tile_e)[:, :s].contiguous()
+    estarts = segment_starts(ek_s)
+    mark("edge_starts")
+    if hasattr(kseg, "segmented_max_scan"):
+        epos_s = kseg.segmented_max_scan(epos_s.reshape(-1), estarts.reshape(-1)).view(K, s)
+        mark("stability_max_scan")
+    else:  # primitives.segscan.segmented_cummax, stage by stage
+        seg = torch.cumsum(estarts.reshape(-1).to(torch.int64), dim=-1)
+        mark("stability_cumsum")
+        packed = (seg << 32) | (epos_s.reshape(-1).to(torch.int64) + 2**31)
+        mark("stability_pack")
+        top = torch.cummax(packed, dim=-1).values
+        mark("stability_cummax")
+        epos_s = ((top & 0xFFFFFFFF) - 2**31).to(torch.int32).view(K, s)
+        mark("stability_unpack")
+    out = RankStructure(kd_s.contiguous(), kr, src_s, dst_s, pos_s, rank_s,
+                        ek_s.contiguous(), epos_s)
+    mark("outputs")
+    return out
+
+
+def per_batch_stages(state, W, n_valid, key, mark):
+    """``core.bulk.bulk_update_all`` on the kernel searches written out
+    stage by stage, with ``mark`` after each: step 1 with its draw,
+    ``rank_all`` split into its arc sort, its ranks (the ``segscan`` kernel
+    where the checkout's ``rank_all`` takes ``use_kernels``, else
+    ``segmented_iota``'s cummax) and the rest, step 2 with its draws, and
+    step 3. Returns the new state, which the caller holds against
+    ``bulk_update_all``."""
+    import inspect
+
+    import torch
+
+    from repro_torch import rng as trng
+    from repro_torch.core import rank as trank
+    from repro_torch.core.bulk import step1_level1, step2_level2, step3_closing
+    from repro_torch.core.state import EstimatorState
+    from repro_torch.primitives.segscan import segment_starts, segmented_iota
+    from repro_torch.primitives.sort import pack2, sort_by_key
+
+    k = trng.split(key)
+    f1, chi_m, f2, has_f3, f1_bpos = step1_level1(state, W, n_valid, k[0])
+    mark("step1_level1")
+    s = W.shape[0]
+    dev = W.device
+    pos1 = torch.arange(s, dtype=torch.int32, device=dev)
+    valid_e = pos1 < n_valid
+    src = torch.cat([W[:, 0], W[:, 1]])
+    dst = torch.cat([W[:, 1], W[:, 0]])
+    pos = torch.cat([pos1, pos1])
+    valid_a = torch.cat([valid_e, valid_e])
+    kd = trank._inf_where(valid_a, pack2(src, (s - 1) - pos))
+    kd_s, src_s, dst_s, pos_s = sort_by_key(kd, src, dst, pos)
+    mark("rank_all_arc_sort")
+    starts = segment_starts(src_s)
+    if "use_kernels" in inspect.signature(trank.rank_all).parameters:
+        from repro_torch.kernels.segscan import segscan
+
+        rank_s = segscan(torch.ones(2 * s, dtype=torch.int32, device=dev), starts) - 1
+        mark("rank_all_ranks_segscan")
+    else:
+        rank_s = segmented_iota(starts)
+        mark("rank_all_ranks_segmented_iota")
+    arc = torch.arange(2 * s, device=dev)
+    kr = trank._inf_where(arc < 2 * n_valid, pack2(src_s, rank_s))
+    emin = torch.minimum(W[:, 0], W[:, 1])
+    emax = torch.maximum(W[:, 0], W[:, 1])
+    ek = trank._inf_where(valid_e, pack2(emin, emax))
+    ek_s, epos_s = sort_by_key(ek, pos1)
+    R = trank.RankStructure(kd_s, kr, src_s, dst_s, pos_s, rank_s, ek_s, epos_s)
+    mark("rank_all_key_rank_and_edge_sort")
+    f2, chi, has_f3, f2_bpos = step2_level2(f1, chi_m, f2, has_f3, f1_bpos, R, k[1], "kernel")
+    mark("step2_level2")
+    has_f3 = step3_closing(f1, f2, has_f3, f2_bpos, R, "kernel")
+    mark("step3_closing")
+    return EstimatorState(f1, chi, f2, has_f3, state.m_seen + n_valid)
+
+
+def tail_batch(edges, dev):
+    """The stream's ragged tail after its two chunks, padded to one batch
+    of s edges, and its edge count."""
+    import torch
+
+    s, K = FULL["s"], FULL["K"]
+    tail = edges[2 * K * s:]
+    W = torch.zeros((s, 2), dtype=torch.int32, device=dev)
+    W[: len(tail)] = torch.from_numpy(tail).to(dev)
+    return W, len(tail)
+
+
+def build_splits(state, Ws, nv, W_tail, n_tail, key) -> dict:
+    """The step-0 splits: the kernel route's structure build and one
+    per-batch update (the ragged tail) stage by stage, each replica held
+    against the function it writes out, and the per-batch update's draws
+    timed alone (step 1's int64 randint; step 2's uniform and int32
+    randint, at the state's r)."""
+    import torch
+
+    from repro_torch import rng as trng
+    from repro_torch.core.bulk import bulk_update_all
+    from repro_torch.core.rank import rank_all_chunk
+
+    got = structure_stages(Ws, nv, lambda name: None)
+    want = rank_all_chunk(Ws, nv, use_kernels=True)
+    for f in want._fields:
+        require_equal(f"structure split {f}", getattr(got, f), getattr(want, f))
+    got = per_batch_stages(state, W_tail, n_tail, key, lambda name: None)
+    want = bulk_update_all(state, W_tail, n_tail, key, "kernel")
+    for f in want._fields:
+        require_equal(f"per-batch split {f}", getattr(got, f), getattr(want, f))
+    r = state.r
+    k = trng.split(key)
+    k2 = trng.split(k[1])
+    total = state.m_seen + n_tail
+    maxval = torch.clamp(state.chi, min=1).to(torch.int32)
+    return {
+        "structure_build_stages_ms": stage_ms(lambda mark: structure_stages(Ws, nv, mark)),
+        "per_batch_stages_ms": stage_ms(
+            lambda mark: per_batch_stages(state, W_tail, n_tail, key, mark), reps=3),
+        "per_batch_draws_alone_ms": {
+            "step1_randint64": time_ms(lambda: trng.randint64(k[0], torch.clamp(total, min=1),
+                                                              (r,)), reps=3),
+            "step2_uniform": time_ms(lambda: trng.uniform(k2[0], (r,)), reps=3),
+            "step2_randint32": time_ms(lambda: trng.randint32(k2[1], maxval, (r,)), reps=3)},
+    }
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float = INT32_OPS_PER_S) -> tuple[float, str]:
@@ -278,7 +576,7 @@ def phase_edges(dev) -> None:
     from repro_torch.kernels.fused_ingest import fused_ingest, fused_ingest_plain
     from repro_torch.kernels.multisearch import multisearch_counts
     from repro_torch.kernels.segment_sum import segment_sum
-    from repro_torch.kernels.segscan import segscan
+    from repro_torch.kernels.segscan import segmented_max_scan, segscan
 
     cases = 0
     # multisearch: n below, at and above the shared-memory sample (8192
@@ -298,14 +596,27 @@ def phase_edges(dev) -> None:
             require_equal(f"multisearch lt n={n} q={q} {fam}", lt, elt)
             require_equal(f"multisearch le n={n} q={q} {fam}", le, ele)
             cases += 1
-    for n in (0, 1, 4095, 4096, 4097, 3 * 4096 + 5, 100_003):
+    # both monoids of the segscan kernel: n around its 8192-entry tile, and
+    # 2^23 + 3 entries with no flag (the longest look-back chains); small
+    # values, and values at INT32_MIN / INT32_MAX (sums that wrap); a view
+    # off 16-byte alignment takes the kernel's scalar loads
+    i32 = np.iinfo(np.int32)
+    for n in (0, 1, 8191, 8192, 8193, 3 * 8192 + 5, 100_003, 2**23 + 3):
         g = np.random.default_rng(n)
-        v = torch.from_numpy(g.integers(-5, 7, n).astype(np.int32)).to(dev)
-        for fam, f in {"random": g.random(n) < 0.2, "cross_tile": g.random(n) < 0.0005,
-                       "no_flags": np.zeros(n, bool), "all_flags": np.ones(n, bool)}.items():
+        values = {"small": g.integers(-5, 7, n),
+                  "extremes": g.choice([i32.min, i32.max, i32.min + 1, -1, 0, 1, 2**30], n)}
+        for (vname, v), (fam, f) in itertools.product(values.items(), {
+                "random": g.random(n) < 0.2, "cross_tile": g.random(n) < 0.0005,
+                "no_flags": np.zeros(n, bool), "all_flags": np.ones(n, bool)}.items()):
+            vt = torch.from_numpy(v.astype(np.int32)).to(dev)
             ft = torch.from_numpy(f).to(dev)
-            require_equal(f"segscan n={n} {fam}", segscan(v, ft), ref.segscan_ref(v, ft))
-            cases += 1
+            cuts = ((vt, ft), (vt[1:], ft[1:])) if n == 100_003 else ((vt, ft),)
+            for a, b in cuts:
+                require_equal(f"segscan n={a.numel()} {vname} {fam}", segscan(a, b),
+                              ref.segscan_ref(a, b))
+                require_equal(f"segmented_max_scan n={a.numel()} {vname} {fam}",
+                              segmented_max_scan(a, b), ref.segmented_max_scan_ref(a, b))
+                cases += 2
     # the tile sort: tiles below its block (4096 entries), many to a block;
     # at the block; and 1, 2, 3 and 5 merge passes above it; ragged n
     for tile, sizes in ((1, (3, 9000)), (2, (5, 20_001)), (16, (15, 16, 17, 3 * 8192 + 16)),
@@ -364,6 +675,21 @@ def phase_edges(dev) -> None:
             it = torch.from_numpy(ids.astype(np.int32)).to(dev)
             require_equal(f"segment_sum n={n} m={m} d={d} {fam}", segment_sum(v, it, m),
                           ref.segment_sum_ref(v, it, m))
+            cases += 1
+    # segment_sum past what its resident grid holds in registers (about 4.3M
+    # ids): ids in range, every id out of range, every row in one bin, d = 2,
+    # and views off 16-byte alignment (the ids read again after the barrier)
+    n, m = 9_000_001, 2**22
+    g = np.random.default_rng(n)
+    for fam, ids, d in (("random", g.integers(-1, m, n), 1), ("all_dropped", np.full(n, m), 1),
+                        ("all_one_segment", np.zeros(n, np.int64), 1),
+                        ("random", g.integers(-1, 1000, n), 2)):
+        v = torch.from_numpy(g.integers(-3, 9, (n, d)).astype(np.float64)).to(dev)
+        it = torch.from_numpy(ids.astype(np.int32)).to(dev)
+        mm = m if d == 1 else 1000
+        for a, b in ((v, it), (v[1:], it[1:])):
+            require_equal(f"segment_sum n={b.numel()} m={mm} d={d} {fam}", segment_sum(a, b, mm),
+                          ref.segment_sum_ref(a, b, mm))
             cases += 1
     torch.cuda.synchronize()
     emit({"phase": "edges", "cases": cases, "ok": True})
@@ -482,7 +808,7 @@ def phase_full(dev) -> dict:
     # the host shows apart from a later one
     rep_again = run_stream(engine("kernel", "kernel"), batches(edges, s))
     missing = [k for k in ("fused_ingest", "bitonic_sort_tiles", "segscan",
-                           "multisearch_counts") if launches[k] == 0]
+                           "segmented_max_scan", "multisearch_counts") if launches[k] == 0]
     if missing:
         raise AssertionError(f"full: kernels never launched on the main path: {missing}")
     digest = state_sha256(eng.snapshot())
@@ -597,7 +923,7 @@ def phase_local_full(dev, full: dict) -> dict:
     estimate_s = time.perf_counter() - t0
     launches, cuda_launches = dict(LAUNCHES), dict(CUDA_LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
-    missing = [k for k in ("multisearch_counts", "segment_sum") if launches[k] == 0]
+    missing = [k for k in ("segscan", "multisearch_counts", "segment_sum") if launches[k] == 0]
     if missing:
         raise AssertionError(f"local_full: kernels never launched on the local path: {missing}")
     digest = state_sha256(eng.snapshot())
@@ -671,7 +997,12 @@ def phase_kernels(dev, full: dict, local: dict) -> list:
     from repro_torch.kernels.fused_ingest import fused_ingest, fused_ingest_plain
     from repro_torch.kernels.multisearch import multisearch_counts, multisearch_counts_plain
     from repro_torch.kernels.segment_sum import segment_sum, segment_sum_plain
-    from repro_torch.kernels.segscan import segscan, segscan_plain
+    from repro_torch.kernels.segscan import (
+        segmented_max_scan,
+        segmented_max_scan_plain,
+        segscan,
+        segscan_plain,
+    )
     from repro_torch.primitives.segscan import segment_starts
     from repro_torch.primitives.sort import pack2
 
@@ -772,14 +1103,46 @@ def phase_kernels(dev, full: dict, local: dict) -> list:
         lambda: bitonic_sort_tiles(kd_p.view(-1), arc_p.view(-1), tile))
     rows[-1]["shapes"] = sort_shapes
 
-    # segscan: Lemma 4.3 ranks over the chunk's sorted arcs
-    ones = torch.ones(K * 2 * s, dtype=torch.int32, device=dev)
-    flags = segment_starts(src).reshape(-1).contiguous()
-    got, want = segscan(ones, flags), segscan_plain(ones, flags)
-    require_equal("segscan full", got, want)
-    row("segscan", max_abs(got, want), time_ms(lambda: segscan(ones, flags)),
-        time_ms(lambda: segscan_plain(ones, flags)), None,
-        nbytes(ones, flags) + nbytes(ones), 2 * ones.numel(), lambda: segscan(ones, flags))
+    # segscan at its three shapes on the path: the chunk's Lemma 4.3 ranks
+    # (sum over K x 2s), one batch's ranks on the per-batch route (sum over
+    # 2s) and the stability patch over the chunk's tile-sorted edges (max
+    # over K x s); 9 bytes an entry (values and flags in, the scan out)
+    eks, eps = bitonic_sort_tiles(ek_p.view(-1), ep_p.view(-1), tile_e)
+    scans = (
+        (f"sum over {K * 2 * s} (chunk ranks)", "segscan", segscan, segscan_plain,
+         torch.ones(K * 2 * s, dtype=torch.int32, device=dev),
+         segment_starts(src).reshape(-1).contiguous()),
+        (f"sum over {2 * s} (per-batch ranks)", "segscan", segscan, segscan_plain,
+         torch.ones(2 * s, dtype=torch.int32, device=dev), segment_starts(src[0]).contiguous()),
+        (f"max over {K * s} (stability patch)", "segmented_max_scan", segmented_max_scan,
+         segmented_max_scan_plain, eps.view(K, tile_e)[:, :s].reshape(-1).contiguous(),
+         segment_starts(eks.view(K, tile_e)[:, :s]).reshape(-1).contiguous()),
+    )
+    scan_shapes, err = [], 0.0
+    for label, name, fn, plain, vals, flags in scans:
+        got, want = fn(vals, flags), plain(vals, flags)
+        require_equal(f"{name} full {label}", got, want)
+        err = max(err, max_abs(got, want))
+        b_ms, b_by = bound(nbytes(vals, flags) + nbytes(vals), 2 * vals.numel())
+        # device times with the host kept out (device_ms); host_paced_ms is
+        # the same calls back to back, which the wrapper's host cost paces
+        scan_shapes.append({
+            "shape": label, "launches_per_call": per_call(name, lambda: fn(vals, flags)),
+            "ms": device_ms(lambda: fn(vals, flags)),
+            "host_paced_ms": time_ms(lambda: fn(vals, flags), reps=20),
+            "plain_ms": time_ms(lambda: plain(vals, flags)), "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+            "unsegmented_cumsum_ms": device_ms(lambda: torch.cumsum(vals, 0, dtype=torch.int32))})
+    main = scan_shapes[0]
+    ones, flags = scans[0][4], scans[0][5]
+    row("segscan", err, main["ms"], main["plain_ms"], None, nbytes(ones, flags) + nbytes(ones),
+        2 * ones.numel(), lambda: segscan(ones, flags))
+    # both wrappers run the one kernel: its launches on the path are theirs
+    rows[-1]["launches"] += full["launches"]["segmented_max_scan"]
+    rows[-1]["launches_by_wrapper"] = {k: full["launches"][k]
+                                       for k in ("segscan", "segmented_max_scan")}
+    rows[-1]["launches_local"] = local["launches"]["segscan"]
+    rows[-1]["shapes"] = scan_shapes
 
     # multisearch_counts: the per-batch path's three searches (Q1 over
     # key_desc, Q2 over key_rank, step 3 over ekey); timed at Q1, the largest
@@ -818,16 +1181,23 @@ def phase_kernels(dev, full: dict, local: dict) -> list:
     keep = (ids >= 0) & (ids < m)
     ids_in, vals_in = ids[keep].long(), vals[keep]
     kept = int(ids_in.numel())
-    row("segment_sum", max_abs(got, want), time_ms(lambda: segment_sum(vals, ids, m)),
+    row("segment_sum", max_abs(got, want), device_ms(lambda: segment_sum(vals, ids, m)),
         time_ms(lambda: segment_sum_plain(vals, ids, m)),
-        time_ms(lambda: torch.zeros((m, 1), dtype=torch.float64, device=dev).index_add_(
+        device_ms(lambda: torch.zeros((m, 1), dtype=torch.float64, device=dev).index_add_(
             0, ids_in, vals_in)),
         nbytes(ids) + 8 * kept + m * 8, kept, lambda: segment_sum(vals, ids, m),
         FP64_OPS_PER_S, local)
     rows[-1]["rows_in_range"] = kept
-    # no one call computes segment_sum: index_add_ is timed on rows already
-    # filtered into range, and the filter over every id is left out
+    # library_ms times index_add_ on rows already filtered into range, the
+    # filter over every id left out; the second figure is one index_add_
+    # over every row, the out-of-range ones sent to a spare bin
     rows[-1]["library_call"] = "zeros + index_add_ on the pre-filtered in-range rows"
+    rows[-1]["host_paced_ms"] = time_ms(lambda: segment_sum(vals, ids, m))
+    rows[-1]["library_ms_all_rows"] = device_ms(
+        lambda: torch.zeros((m + 1, 1), dtype=torch.float64, device=dev).index_add_(
+            0, torch.where((ids >= 0) & (ids < m), ids, m), vals)[:m])
+    rows[-1]["library_call_all_rows"] = (
+        "zeros(m + 1, d).index_add_(0, where(in_range, ids, m), values)[:m]")
     emit({"phase": "kernels", "ok": True})
 
     # where one chunk's device time goes on the kernel route (the structure
@@ -835,9 +1205,7 @@ def phase_kernels(dev, full: dict, local: dict) -> list:
     # route's hoisted draws and selects, which only it computes; and the
     # ragged tail batch on the per-batch route
     steps = torch.arange(K, dtype=torch.int64, device=dev)
-    tail = full["edges"][2 * K * s:]
-    W_tail = torch.zeros((s, 2), dtype=torch.int32, device=dev)
-    W_tail[: len(tail)] = torch.from_numpy(tail).to(dev)
+    W_tail, n_tail = tail_batch(full["edges"], dev)
     emit({"phase": "breakdown",
           "chunk_ms": time_ms(lambda: bulk_update_chunk(state, Ws, nv, key, 0, backend="kernel"), reps=5),
           "structures_ms": time_ms(lambda: rank_all_chunk(Ws, nv, use_kernels=True), reps=5),
@@ -846,7 +1214,12 @@ def phase_kernels(dev, full: dict, local: dict) -> list:
                                                                     backend="fused"), reps=3),
           "plain_route_randomness_ms": time_ms(lambda: _chunk_randomness(state, nv, key, steps), reps=3),
           "plain_route_draws_and_selects_ms": time_ms(lambda: chunk_draws(state, Ws, nv, key, 0), reps=3),
-          "tail_batch_ms": time_ms(lambda: bulk_update_all(state, W_tail, len(tail), key, "kernel"), reps=3)})
+          "tail_batch_ms": time_ms(lambda: bulk_update_all(state, W_tail, n_tail, key, "kernel"), reps=3),
+          "chunk_profile": device_busy(lambda: bulk_update_chunk(state, Ws, nv, key, 0,
+                                                                 backend="kernel")),
+          "tail_batch_profile": device_busy(lambda: bulk_update_all(state, W_tail, n_tail, key,
+                                                                    "kernel")),
+          **build_splits(state, Ws, nv, W_tail, n_tail, key)})
     return rows
 
 

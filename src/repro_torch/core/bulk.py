@@ -25,7 +25,11 @@ from repro_torch import rng
 from repro_torch.core.rank import RankStructure, rank_all, rank_all_chunk
 from repro_torch.core.state import EstimatorState
 from repro_torch.primitives.ingest import randint_from_bits, resolve_ingest_backend
-from repro_torch.primitives.search import multisearch_bounds, multisearch_lt
+from repro_torch.primitives.search import (
+    multisearch_bounds,
+    multisearch_lt,
+    resolve_multisearch_backend,
+)
 from repro_torch.primitives.sort import pack2
 
 Tensor = torch.Tensor
@@ -143,10 +147,13 @@ def step3_closing(f1, f2, has_f3, f2_bpos, R: RankStructure, search: str = "auto
 def bulk_update_all(state: EstimatorState, W: Tensor, n_valid: IntLike,
                     key: Tensor, search: str = "auto") -> EstimatorState:
     """Process one batch of edges into all estimators (paper Theorem 4.1).
-    W: (s, 2) int32 on the state's device; the first n_valid rows are real."""
+    W: (s, 2) int32 on the state's device; the first n_valid rows are real.
+    Where ``search`` resolves to the kernel, the ranks come from the
+    ``segscan`` kernel too."""
     k = rng.split(key)
     f1, chi_m, f2, has_f3, f1_bpos = step1_level1(state, W, n_valid, k[0])
-    R = rank_all(W, n_valid)
+    R = rank_all(W, n_valid,
+                 use_kernels=resolve_multisearch_backend(search, W.device) == "kernel")
     f2, chi, has_f3, f2_bpos = step2_level2(f1, chi_m, f2, has_f3, f1_bpos, R, k[1], search)
     has_f3 = step3_closing(f1, f2, has_f3, f2_bpos, R, search)
     return EstimatorState(f1, chi, f2, has_f3, state.m_seen + n_valid)

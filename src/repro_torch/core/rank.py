@@ -17,11 +17,7 @@ from typing import NamedTuple, Union
 
 import torch
 
-from repro_torch.primitives.segscan import (
-    segment_starts,
-    segmented_cummax,
-    segmented_iota,
-)
+from repro_torch.primitives.segscan import segment_starts, segmented_iota
 from repro_torch.primitives.sort import pack2, sort_by_key
 
 Tensor = torch.Tensor
@@ -51,9 +47,13 @@ def _inf_where(valid: Tensor, key: Tensor) -> Tensor:
     return torch.where(valid, key, torch.full_like(key, INF64))
 
 
-def rank_all(W: Tensor, n_valid: Union[int, Tensor]) -> RankStructure:
+def rank_all(W: Tensor, n_valid: Union[int, Tensor], *,
+             use_kernels: bool = False) -> RankStructure:
     """Build the RankStructure for batch ``W`` ((s, 2) int32, first n_valid
-    real) with a stable sort: the eager route."""
+    real) with a stable sort. ``use_kernels=True`` computes the ranks with
+    the ``segscan`` kernel (``segscan(ones, starts) - 1``, as the chunk's
+    kernel route does) instead of ``segmented_iota``'s ``torch.cummax``;
+    every field is the same."""
     s = W.shape[0]
     dev = W.device
     pos1 = torch.arange(s, dtype=torch.int32, device=dev)
@@ -67,7 +67,13 @@ def rank_all(W: Tensor, n_valid: Union[int, Tensor]) -> RankStructure:
     kd = _inf_where(valid_a, pack2(src, (s - 1) - pos))
     kd_s, src_s, dst_s, pos_s = sort_by_key(kd, src, dst, pos)
 
-    rank_s = segmented_iota(segment_starts(src_s))
+    starts = segment_starts(src_s)
+    if use_kernels:
+        from repro_torch.kernels.segscan import segscan
+
+        rank_s = segscan(torch.ones(2 * s, dtype=torch.int32, device=dev), starts) - 1
+    else:
+        rank_s = segmented_iota(starts)
     arc = torch.arange(2 * s, device=dev)
     kr = _inf_where(arc < 2 * n_valid, pack2(src_s, rank_s))
 
@@ -84,16 +90,16 @@ def rank_all_chunk(
     """Stacked RankStructure over K batches (every array gains a leading K
     axis). ``n_valids`` is a (K,) integer tensor on ``Ws``'s device.
 
-    ``use_kernels=True`` builds with the ``bitonic_sort_tiles`` and
-    ``segscan`` kernels. The tile sort's contract does not promise a stable
-    order (the reference's network is not stable; the CUDA merge sort is),
-    so the two places a stable order is observable are patched as in the
-    reference: equal arc keys arise only from the two orientations of a
-    self-loop (identical payloads), and equal closing-edge keys (duplicate
-    edges in one batch) get a segmented running maximum of their positions,
-    so the right insertion point still reads the last copy's position. Only
-    the padding tails, masked to INF64 or never read, may differ from the
-    eager build.
+    ``use_kernels=True`` builds with the ``bitonic_sort_tiles``,
+    ``segscan`` and ``segmented_max_scan`` kernels. The tile sort's
+    contract does not promise a stable order (the reference's network is
+    not stable; the CUDA merge sort is), so the two places a stable order
+    is observable are patched as in the reference: equal arc keys arise
+    only from the two orientations of a self-loop (identical payloads), and
+    equal closing-edge keys (duplicate edges in one batch) get a segmented
+    running maximum of their positions, so the right insertion point still
+    reads the last copy's position. Only the padding tails, masked to INF64
+    or never read, may differ from the eager build.
     """
     if not use_kernels:
         return RankStructure(
@@ -108,7 +114,7 @@ def _next_pow2(n: int) -> int:
 
 def _rank_all_chunk_kernels(Ws: Tensor, n_valids: Tensor) -> RankStructure:
     from repro_torch.kernels.bitonic import bitonic_sort_tiles
-    from repro_torch.kernels.segscan import segscan
+    from repro_torch.kernels.segscan import segmented_max_scan, segscan
 
     K, s, _ = Ws.shape
     dev = Ws.device
@@ -158,9 +164,10 @@ def _rank_all_chunk_kernels(Ws: Tensor, n_valids: Tensor) -> RankStructure:
     eks, eps = bitonic_sort_tiles(ek_p.view(-1), ep_p.view(-1), tile_e)
     ek_s = eks.view(K, tile_e)[:, :s]
     epos_s = eps.view(K, tile_e)[:, :s].contiguous()
-    # restore the stable-sort guarantee step 3 reads (see segmented_cummax)
+    # restore the stable-sort guarantee step 3 reads: a segmented running
+    # maximum of the positions over each run of equal keys
     estarts = segment_starts(ek_s)
-    epos_s = segmented_cummax(epos_s.reshape(-1), estarts.reshape(-1)).view(K, s)
+    epos_s = segmented_max_scan(epos_s.reshape(-1), estarts.reshape(-1)).view(K, s)
     return RankStructure(
         kd_s.contiguous(), kr, src_s, dst_s, pos_s, rank_s, ek_s.contiguous(), epos_s
     )

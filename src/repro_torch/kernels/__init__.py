@@ -2,7 +2,8 @@
 
   fused_ingest        kernels/fused_ingest.py  (csrc/fused_ingest.cu)
   bitonic_sort_tiles  kernels/bitonic.py       (csrc/bitonic.cu)
-  segscan             kernels/segscan.py       (csrc/segscan.cu)
+  segscan             kernels/segscan.py       (csrc/segscan.cu, sum)
+  segmented_max_scan  kernels/segscan.py       (csrc/segscan.cu, max)
   multisearch_counts  kernels/multisearch.py   (csrc/multisearch.cu)
   segment_sum         kernels/segment_sum.py   (csrc/segment_sum.cu)
 

@@ -37,8 +37,10 @@ NVCC_FLAGS = (
 # Launch counts, one per kernel: a wrapper adds one where it launches its
 # kernel on the card, and nowhere else (its plain version on CPU tensors and
 # its no-launch short cuts do not count).
-LAUNCHES = {name: 0 for name in ("fused_ingest", "bitonic_sort_tiles",
-                                 "segscan", "multisearch_counts", "segment_sum")}
+# segmented_max_scan is the segscan kernel over the max monoid, counted
+# apart so that a run shows both monoids were launched.
+LAUNCHES = {name: 0 for name in ("fused_ingest", "bitonic_sort_tiles", "segscan",
+                                 "segmented_max_scan", "multisearch_counts", "segment_sum")}
 # The CUDA kernels those wrapper calls queued, as each C entry reports them
 # (a tile sort, for one, queues a block sort and one kernel per merge pass).
 CUDA_LAUNCHES = dict(LAUNCHES)

@@ -6,6 +6,7 @@ from __future__ import annotations
 from repro_torch.kernels.bitonic import bitonic_sort_tiles_plain as bitonic_sort_tiles_ref
 from repro_torch.kernels.multisearch import multisearch_counts_plain as multisearch_counts_ref
 from repro_torch.kernels.segment_sum import segment_sum_plain as segment_sum_ref
+from repro_torch.kernels.segscan import segmented_max_scan_plain as segmented_max_scan_ref
 from repro_torch.kernels.segscan import segscan_plain as segscan_ref
 
 
@@ -18,4 +19,5 @@ def fused_ingest_ref(state, Ws, n_valids, key, step0: int = 0):
 
 
 __all__ = ["bitonic_sort_tiles_ref", "fused_ingest_ref",
-           "multisearch_counts_ref", "segment_sum_ref", "segscan_ref"]
+           "multisearch_counts_ref", "segment_sum_ref", "segmented_max_scan_ref",
+           "segscan_ref"]

@@ -4,6 +4,7 @@ against the Pallas kernel in interpret mode at a tiny shape, the wrappers'
 CPU dispatch and argument checks, and (on a CUDA machine only) each CUDA
 kernel against its plain version."""
 import ctypes
+import itertools
 import sys
 import pathlib
 
@@ -32,12 +33,21 @@ from repro_torch.kernels.fused_ingest import (  # noqa: E402
 )
 from repro_torch.kernels.multisearch import multisearch_counts, multisearch_counts_plain  # noqa: E402
 from repro_torch.kernels.segment_sum import segment_sum, segment_sum_plain  # noqa: E402
-from repro_torch.kernels.segscan import segscan, segscan_plain  # noqa: E402
+from repro_torch.kernels.segscan import (  # noqa: E402
+    segmented_max_scan,
+    segmented_max_scan_plain,
+    segscan,
+    segscan_plain,
+)
+from repro.primitives.segscan import segmented_cummax as jax_segmented_cummax  # noqa: E402
 
 INF64 = np.iinfo(np.int64).max
 T = torch.from_numpy
 FIELDS = ("f1", "chi", "f2", "has_f3")
 jax_segscan_ref = jax.jit(kref.segscan_ref)
+jax_cummax = jax.jit(jax_segmented_cummax)
+SCAN_TILE = 8192  # entries per CTA of csrc/segscan.cu
+I32 = np.iinfo(np.int32)
 
 
 def _queries(n, q, seed):
@@ -111,6 +121,35 @@ def test_segscan_plain_vs_jax_ref(n):
                     "none": np.zeros(n, bool), "all": np.ones(n, bool)}.items():
         want = jax_segscan_ref(jnp.asarray(v), jnp.asarray(f)) if n else v
         np.testing.assert_array_equal(np.asarray(want), segscan(T(v), T(f)).numpy(), err_msg=name)
+
+
+def _scan_values(n, seed):
+    """Small values, and values at INT32_MIN / INT32_MAX and around them."""
+    g = np.random.default_rng(seed)
+    return {"small": g.integers(-5, 7, n).astype(np.int32),
+            "extremes": g.choice([I32.min, I32.max, I32.min + 1, I32.max - 1, -1, 0, 1],
+                                 n).astype(np.int32)}
+
+
+def _scan_flags(n, seed):
+    """Flag families: random, segments that cross the kernel's tile, none,
+    every entry."""
+    g = np.random.default_rng(seed)
+    return {"random": g.random(n) < 0.2, "cross_tile": g.random(n) < 3.0 / SCAN_TILE,
+            "none": np.zeros(n, bool), "all": np.ones(n, bool)}
+
+
+@pytest.mark.parametrize("n", [0, 1, 127, SCAN_TILE - 1, SCAN_TILE, SCAN_TILE + 1,
+                               3 * SCAN_TILE + 5])
+def test_segmented_max_scan_plain_vs_jax(n):
+    """The max-scan wrapper on CPU tensors (its plain version) against the
+    JAX package's segmented_cummax on the same inputs."""
+    for (vname, v), (fname, f) in itertools.product(_scan_values(n, n).items(),
+                                                    _scan_flags(n, n + 1).items()):
+        want = np.asarray(jax_cummax(jnp.asarray(v), jnp.asarray(f))) if n else v
+        got = segmented_max_scan(T(v), T(f))
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(want, got.numpy(), err_msg=f"{vname} {fname}")
 
 
 @pytest.mark.parametrize("n,tile", [
@@ -222,6 +261,7 @@ def test_wrappers_take_plain_version_only_on_cpu():
     k = torch.arange(10, dtype=torch.int64)
     multisearch_counts(k, k)
     segscan(torch.ones(10, dtype=torch.int32), torch.zeros(10, dtype=torch.bool))
+    segmented_max_scan(torch.ones(10, dtype=torch.int32), torch.zeros(10, dtype=torch.bool))
     bitonic_sort_tiles(k.flip(0).contiguous(), torch.zeros(10, dtype=torch.int32), 16)
     segment_sum(torch.ones(10, 1, dtype=torch.float64), torch.zeros(10, dtype=torch.int32), 3)
     assert LAUNCHES == before  # no launch counted off the card
@@ -413,3 +453,58 @@ def test_cuda_segment_sum(cuda, n, m, d):
     for ids in fams.values():
         i = T(ids).to(cuda)
         assert torch.equal(segment_sum(v, i, m), segment_sum_plain(v, i, m))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("monoid", ["sum", "max"])
+@pytest.mark.parametrize("n", [0, 1, SCAN_TILE - 1, SCAN_TILE, SCAN_TILE + 1, 2**23 + 3])
+def test_cuda_segscan_monoids(cuda, monoid, n):
+    """Both monoids of the single-pass scan against their plain versions at
+    n = 0, 1, the tile +-1 and 2^23 + 3, on small and extreme values (sums
+    that wrap, INT32_MIN and INT32_MAX), at random flag densities, with no
+    flag (the longest look-back chains) and every entry flagged, and on a
+    view off 16-byte alignment (the kernel's scalar loads)."""
+    fn, plain = {"sum": (segscan, segscan_plain),
+                 "max": (segmented_max_scan, segmented_max_scan_plain)}[monoid]
+    g = np.random.default_rng(n)
+    flags = {"none": np.zeros(n, bool), "all": np.ones(n, bool),
+             **{f"p={p}": g.random(n) < p for p in (0.5, 0.01, 3.0 / SCAN_TILE, 1e-6)}}
+    for (vname, v), (fname, f) in itertools.product(_scan_values(n, n).items(), flags.items()):
+        vt, ft = T(v).to(cuda), T(f).to(cuda)
+        for a, b in ((vt, ft), (vt[1:], ft[1:])):
+            assert torch.equal(fn(a, b), plain(a, b)), f"{vname} {fname} n={a.numel()}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fam,d", [("random", 1), ("all_dropped", 1), ("all_one_segment", 1),
+                                   ("random", 2)])
+def test_cuda_segment_sum_past_the_resident_grid(cuda, fam, d):
+    """More rows (9,000,001) than the cooperative grid holds in registers
+    (about 4.3M ids), so the rest are read after the barrier: ids in range,
+    every id out of range, every row in one bin, d = 2, and an unaligned
+    view of the ids."""
+    n, m = 9_000_001, 2**22 if d == 1 else 1000
+    g = np.random.default_rng(d)
+    ids = {"random": g.integers(-1, m, n), "all_dropped": np.full(n, m),
+           "all_one_segment": np.zeros(n, np.int64)}[fam].astype(np.int32)
+    v = T(g.integers(-3, 9, (n, d)).astype(np.float64)).to(cuda)
+    i = T(ids).to(cuda)
+    for a, b in ((v, i), (v[1:], i[1:])):
+        assert torch.equal(segment_sum(a, b, m), segment_sum_plain(a, b, m))
+
+
+@pytest.mark.cuda
+def test_cuda_scans_and_segment_sum_launch_once(cuda, monkeypatch):
+    """segscan (both monoids) and segment_sum queue one CUDA kernel per
+    call, as their C entries report it (segscan's memset of its scratch and
+    nothing of segment_sum's zero-fill is a kernel launch)."""
+    monkeypatch.setattr(_build, "LAUNCHES", dict.fromkeys(LAUNCHES, 0))
+    monkeypatch.setattr(_build, "CUDA_LAUNCHES", dict.fromkeys(LAUNCHES, 0))
+    n = 3 * 2**20 + 7
+    v = torch.randint(-9, 9, (n,), dtype=torch.int32, device=cuda)
+    f = torch.rand(n, device=cuda) < 0.001
+    segscan(v, f)
+    segmented_max_scan(v, f)
+    segment_sum(v.to(torch.float64)[:, None], v, 5)
+    for name in ("segscan", "segmented_max_scan", "segment_sum"):
+        assert _build.LAUNCHES[name] == _build.CUDA_LAUNCHES[name] == 1, name

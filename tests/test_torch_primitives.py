@@ -123,6 +123,21 @@ def test_rank_all_every_field(s, n_valid):
                                           err_msg=f)
 
 
+@pytest.mark.parametrize("s,n_valid", [(1, 1), (8, 0), (8, 5), (64, 64), (100, 37)])
+def test_rank_all_kernel_switch(s, n_valid):
+    """``rank_all(use_kernels=True)`` (ranks by segscan, here its plain
+    version) equals the eager build and the JAX reference in every field."""
+    W = _batch(s, max(s // 2, 3), s + n_valid)
+    want = jax_rank_all(jnp.asarray(W), jnp.int32(n_valid))
+    eager = rank_all(T(W), n_valid)
+    got = rank_all(T(W), n_valid, use_kernels=True)
+    for f in want._fields:
+        np.testing.assert_array_equal(getattr(eager, f).numpy(), getattr(got, f).numpy(),
+                                      err_msg=f)
+        np.testing.assert_array_equal(np.asarray(getattr(want, f)), getattr(got, f).numpy(),
+                                      err_msg=f)
+
+
 @pytest.mark.parametrize("use_kernels", [False, True])
 @pytest.mark.parametrize("K,s", [(1, 6), (3, 40), (2, 64)])
 def test_rank_all_chunk(use_kernels, K, s):
