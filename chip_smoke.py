@@ -19,7 +19,10 @@ Phases, each of which raises on failure (nothing is caught):
              reversed input; for multisearch n below, at and above its
              8192-key sample, equal runs longer than the sample spacing,
              queries below, above and equal to every key and INT64 max; for
-             segment_sum dropped ids, every row in one bin, n = 0, m = 0,
+             the deletion path's shapes: 2^20 keys that are INT64 max but
+             for 700,000 (a ragged expiry batch) or one (one edge expired),
+             negative queries (unset slots) and 3r queries against n = 1;
+             for segment_sum dropped ids, every row in one bin, n = 0, m = 0,
              d = 1 and 2, and 9,000,001 rows, past what its resident grid
              holds in registers, with every id out of range, all in one bin,
              d = 2 and an unaligned view; for fused_ingest, which draws its
@@ -36,6 +39,11 @@ Phases, each of which raises on failure (nothing is caught):
              sha256 and sum/3 (golden/local_small.json);
   naive      the naive scheme (no kernel) on three batches reproduces JAX's
              state sha256 (golden/naive_small.json);
+  golden_dynamic  three dynamic runs on the kernel route reproduce JAX's
+             state and window-ring sha256, estimate (or estimate sha256 and
+             sum/3) and counters (golden/dynamic_small.json): global under
+             churn through run_signed_stream, global with a sliding window
+             chunked at K = 4, local with exponential decay;
   full       the paper's bulk_s1m_r2m shape (r = 2^21 estimators, batch
              s = 2^20, chunk K = 4) through TriangleCountEngine + run_stream on
              a 9,088,608-edge planted-triangle stream: two chunks, then a
@@ -58,11 +66,29 @@ Phases, each of which raises on failure (nothing is caught):
              run cut after chunk 1 and resumed both finish equal, and that
              sum/3 is within 5% of tau; it prints l1.err against the
              planted truth without gating on it;
+  dynamic_full  the full shape on dynamic streams, global scheme: (a) a
+             sliding window of 6,291,456 edges through run_stream on the
+             same stream (2,097,152 edges expire after chunk 2 and 700,000
+             after the tail: 3 deletion batches), and (b) one deletion burst
+             of 1,048,576 of the first 8,388,608 edges, then the tail, through
+             engine.ingest_signed_stream. Each checks that the kernel route
+             equals the plain route, that multisearch_counts was launched on
+             the deletion path, and rel.err against the live triangles
+             (counted from the planted construction) within a limit
+             reckoned from this run's numbers; (a) also a snapshot after
+             chunk 1 restored and run on, (b) a run_signed_stream
+             checkpoint cut right after the burst and resumed. It records
+             edges/s, peak device bytes and one full-width
+             bulk_delete_update: its time back to back (CUDA events), its
+             device busy time (torch.profiler) and its host enqueue time;
+             and the host seconds of the window clock (ring appends, flushes);
   kernels    each kernel and its plain version at the main path's full-size
              shapes: equal, and timed with CUDA events beside its bound and,
              where one PyTorch call computes the same function, that call;
              the tile sort at both of its shapes (arc and edge tiles),
-             multisearch at all three (Q1, Q2, step 3) and segscan at all
+             multisearch at all three (Q1, Q2, step 3), and in a row of its
+             own at the deletion shape (3r queries into the 2^20 keys of
+             the tail's expiry batch), and segscan at all
              three (sum over K x 2s and over 2s, max over K x s, each beside
              an unsegmented torch.cumsum); segment_sum beside index_add_ on
              pre-filtered rows and over every row; for every kernel and
@@ -596,6 +622,34 @@ def phase_edges(dev) -> None:
             require_equal(f"multisearch lt n={n} q={q} {fam}", lt, elt)
             require_equal(f"multisearch le n={n} q={q} {fam}", le, ele)
             cases += 1
+    # the deletion path's shapes: a batch's 2^20 sorted keys, INT64 max but
+    # for 700,000 real ones (the tail's expiry batch) or for one (one edge
+    # expired; also with no real key), against 3r-sized query vectors with
+    # negative queries (unset slots pack to -1, or to -2^32 + x); and q = 3r
+    # against n = 1
+    g = np.random.default_rng(16)
+    s, q3 = 2**20, 3 * 2**21
+    for n_real in (700_000, 1, 0):
+        keys = np.full(s, INF64, np.int64)
+        keys[:n_real] = np.sort(g.integers(0, 2**40, n_real))
+        qs = np.concatenate([g.choice(keys[:max(n_real, 1)], q3 // 3),
+                             g.integers(-2**33, 2**40, q3 // 3),
+                             np.where(g.random(q3 // 3) < 0.5, -1, INF64)])
+        k, qt = torch.from_numpy(keys).to(dev), torch.from_numpy(qs.astype(np.int64)).to(dev)
+        lt, le = multisearch_counts(k, qt)
+        elt, ele = ref.multisearch_counts_ref(k, qt)
+        require_equal(f"multisearch deletion keys n_real={n_real} lt", lt, elt)
+        require_equal(f"multisearch deletion keys n_real={n_real} le", le, ele)
+        cases += 1
+    for key in (-1, 0, 5, INF64):
+        k = torch.tensor([key], dtype=torch.int64, device=dev)
+        qt = torch.from_numpy(np.concatenate([g.integers(-10, 10, q3 - 3), [-1, key, INF64]])
+                              .astype(np.int64)).to(dev)
+        lt, le = multisearch_counts(k, qt)
+        elt, ele = ref.multisearch_counts_ref(k, qt)
+        require_equal(f"multisearch n=1 key={key} lt", lt, elt)
+        require_equal(f"multisearch n=1 key={key} le", le, ele)
+        cases += 1
     # both monoids of the segscan kernel: n around its 8192-entry tile, and
     # 2^23 + 3 entries with no flag (the longest look-back chains); small
     # values, and values at INT32_MIN / INT32_MAX (sums that wrap); a view
@@ -758,6 +812,58 @@ def phase_naive(dev) -> None:
     if digest != gold["state_sha256"] or eng.step != gold["step"] or est != gold["estimate"]:
         raise AssertionError(f"naive: state sha256 {digest} != JAX {gold['state_sha256']}")
     emit({"phase": "naive", "state_sha256": digest, "estimate": est, "ok": True})
+
+
+def phase_golden_dynamic(dev) -> None:
+    """The three dynamic golden runs on the kernel route, held to the JAX
+    engine's records (the global estimate to 1e-12 relative, as phase
+    golden holds it; everything else exactly)."""
+    from repro_torch.data.graph_stream import (
+        batches,
+        churn_stream,
+        planted_triangle_stream,
+        signed_batches,
+    )
+    from repro_torch.engine import EngineConfig, TriangleCountEngine, run_signed_stream, run_stream
+    from repro_torch.interop import estimate_sha256, state_sha256, window_sha256
+
+    gold = json.loads((ROOT / "src/repro_torch/golden/dynamic_small.json").read_text())
+    st, en = gold["stream"], gold["engine"]
+    edges, _ = planted_triangle_stream(st["triangles"], st["noise_edges"], st["vertices"],
+                                       seed=st["seed"])
+    s = en["batch_size"]
+    out = {}
+    for name, run in gold["runs"].items():
+        eng = TriangleCountEngine(EngineConfig(
+            r=en["r"], batch_size=s, chunk_size=run["chunk_size"], groups=en["groups"],
+            seeds=(en["seed"],), device=dev.type, ingest="kernel", multisearch="kernel",
+            scheme=run["scheme"],
+            scheme_params=gold["scheme_params_local"] if run["scheme"] == "local" else None,
+            window=run.get("window", 0), decay=run.get("decay", 0.0)))
+        if run.get("deletions"):
+            stream = churn_stream(edges[: run["edges"]], run["deletions"], seed=run["churn_seed"])
+            run_signed_stream(eng, signed_batches(stream, s))
+        else:
+            run_stream(eng, batches(edges, s))
+        snap = eng.snapshot()
+        est = eng.estimate()[0]
+        got = {"step": eng.step, "dyn_step": eng.dyn_step, "state_sha256": state_sha256(snap),
+               "delete_batches": eng.diag.delete_batches,
+               "window_expired": eng.diag.window_expired}
+        if "window_sha256" in run:
+            got["window_sha256"] = window_sha256(snap)
+        if run["scheme"] == "local":
+            got.update(estimate_sha256=estimate_sha256(est), sum3=float(est.sum()) / 3)
+        for k, v in got.items():
+            if v != run[k]:
+                raise AssertionError(f"golden_dynamic {name}: {k} {v!r} != JAX {run[k]!r}")
+        if "estimate" in run:
+            got["estimate"] = float(est)
+            if abs(got["estimate"] - run["estimate"]) > 1e-12 * abs(run["estimate"]):
+                raise AssertionError(f"golden_dynamic {name}: estimate {got['estimate']!r} "
+                                     f"!= JAX {run['estimate']!r}")
+        out[name] = got
+    emit({"phase": "golden_dynamic", "runs": out, "ok": True})
 
 
 def planted_full(seed: int):
@@ -977,18 +1083,187 @@ def phase_local_full(dev, full: dict) -> dict:
     return {"launches": launches, "state": eng.state, "scheme": eng.scheme}
 
 
-def phase_kernels(dev, full: dict, local: dict) -> list:
+def live_triangles(live: np.ndarray, T: int) -> int:
+    """The planted triangles whose three edges are all in ``live``: the T
+    triangles are disjoint on vertices 0 .. 3T - 1, which no noise edge
+    touches, so an edge with both ends below 3T belongs to triangle
+    min // 3, and each of its three edges occurs once."""
+    lo = np.minimum(live[:, 0], live[:, 1]).astype(np.int64)
+    hi = np.maximum(live[:, 0], live[:, 1])
+    return int((np.bincount(lo[hi < 3 * T] // 3, minlength=T) == 3).sum())
+
+
+def rel_err_limit(m: int, tau: int) -> float:
+    """The rel.err limit of a dynamic full-size run, reckoned as for phase
+    full: one estimator's coarse estimate has Var <= m * D * tau, with m the
+    insertion count (deletions leave m_seen alone, and a live triangle is
+    tracked with probability 1 / (m * chi) as before) and D ~ 15 bounding chi
+    for the noise's degrees, so the mean of r has relative sigma
+    sqrt(m * D / (r * tau)); the limit is three of those sigmas (4.8% at
+    phase full's tau). Fewer live triangles widen it."""
+    return 3 * math.sqrt(m * 15 / (FULL["r"] * tau))
+
+
+def phase_dynamic_full(dev, full: dict) -> dict:
+    import torch
+
+    from repro_torch.core.bulk import bulk_delete_update
+    from repro_torch.data.graph_stream import batches
+    from repro_torch.engine import EngineConfig, TriangleCountEngine, run_signed_stream, run_stream
+    from repro_torch.interop import state_sha256, window_sha256
+    from repro_torch.kernels import CUDA_LAUNCHES, LAUNCHES, reset_launches
+
+    edges, T = full["edges"], full["tau"]
+    s, K, r = FULL["s"], FULL["K"], FULL["r"]
+    m, head = len(edges), 2 * FULL["K"] * FULL["s"]
+    window, n_tail = 6 * s, m - head
+
+    def engine(ingest, multisearch, **kw):
+        return TriangleCountEngine(EngineConfig(
+            r=r, batch_size=s, chunk_size=K, groups=FULL["groups"], seeds=(FULL["seed"],),
+            device=dev.type, ingest=ingest, multisearch=multisearch, **kw))
+
+    # (a) a sliding window of 6 s edges: nothing expires after chunk 1,
+    # 2 s edges after chunk 2 and the tail's 700,000 after it
+    eng = engine("kernel", "kernel", window=window)
+    # host seconds inside the window clock: appending each batch to the ring,
+    # and each flush (its masks and copies, and enqueueing its deletions)
+    ring_s = {"track_inserts": 0.0, "flush_expired": 0.0}
+
+    def timed(name, fn):
+        def call(*args):
+            t0 = time.perf_counter()
+            fn(*args)
+            ring_s[name] += time.perf_counter() - t0
+        return call
+
+    eng._track_inserts = timed("track_inserts", eng._track_inserts)
+    eng._flush_expired = timed("flush_expired", eng._flush_expired)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    rep = run_stream(eng, batches(edges, s))
+    launches, cuda_launches = dict(LAUNCHES), dict(CUDA_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_del = -(-(head - window) // s) + -(-n_tail // s)  # expiry batches of at most s
+    # the tail's per-batch update searches 3 times (Q1, Q2, step 3), each
+    # deletion batch once
+    if eng.diag.window_expired != m - window or launches["multisearch_counts"] != 3 + n_del:
+        raise AssertionError(f"dynamic_full: expired {eng.diag.window_expired} edges "
+                             f"(want {m - window}), multisearch_counts launched "
+                             f"{launches['multisearch_counts']} times (want {3 + n_del})")
+    snap = eng.snapshot()
+    digest, ring = state_sha256(snap), window_sha256(snap)
+    est = float(eng.estimate()[0])
+    tau_w = live_triangles(edges[m - window:], T)
+    rel_w, limit_w = abs(est - tau_w) / tau_w, rel_err_limit(m, tau_w)
+    if rel_w > limit_w:
+        raise AssertionError(f"dynamic_full window: rel.err {rel_w:.4%} > {limit_w:.4%}")
+    plain = engine("scan", "eager", window=window)
+    run_stream(plain, batches(edges, s))
+    if (state_sha256(plain.snapshot()), window_sha256(plain.snapshot())) != (digest, ring):
+        raise AssertionError("dynamic_full window: kernel route differs from the plain route")
+    first = engine("kernel", "kernel", window=window)
+    run_stream(first, itertools.islice(batches(edges, s), K))
+    resumed = engine("kernel", "kernel", window=window)
+    resumed.restore(first.snapshot())
+    run_stream(resumed, batches(edges, s))  # skips the first engine.step batches
+    if (state_sha256(resumed.snapshot()), window_sha256(resumed.snapshot())) != (digest, ring):
+        raise AssertionError("dynamic_full window: snapshot after chunk 1 + restore diverged")
+    # one full-width deletion batch: the tail's expiry batch (700,000 real
+    # keys, the rest INT64 max) against the final state's 3r queries
+    D = torch.zeros((s, 2), dtype=torch.int32, device=dev)
+    D[:n_tail] = torch.from_numpy(edges[head - window: m - window]).to(dev)
+    state = eng.state
+
+    def delete_once():
+        return bulk_delete_update(state, D, n_tail, "kernel")
+
+    # back to back with CUDA events, the device's busy time of one call
+    # (torch.profiler), and the host's time to enqueue one call: the
+    # device-spin timing (device_ms) needs the enqueue to outrun the device
+    delete_ms = time_ms(delete_once, reps=20)
+    delete_profile = device_busy(delete_once)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        delete_once()
+    delete_enqueue_ms = (time.perf_counter() - t0) * 1e3 / 20
+    torch.cuda.synchronize(dev)
+
+    # (b) one burst of s deletions drawn from the first 2 K s edges, between
+    # the two chunks and the tail
+    pick = np.random.default_rng(FULL["seed"] + 1).choice(head, size=s, replace=False)
+    items = [(W, nv, 1) for W, nv in batches(edges[:head], s)]
+    items += [(edges[pick], s, -1), *((W, nv, 1) for W, nv in batches(edges[head:], s))]
+    burst = engine("kernel", "kernel")
+    reset_launches()
+    t0 = time.perf_counter()
+    burst.ingest_signed_stream(iter(items))
+    burst.sync()
+    burst_s = time.perf_counter() - t0
+    burst_launches = dict(LAUNCHES)
+    if burst_launches["multisearch_counts"] != 3 + 1 or burst.diag.edges_deleted != s:
+        raise AssertionError(f"dynamic_full burst: multisearch_counts launched "
+                             f"{burst_launches['multisearch_counts']} times (want 4), "
+                             f"{burst.diag.edges_deleted} edges deleted")
+    digest_b = state_sha256(burst.snapshot())
+    est_b = float(burst.estimate()[0])
+    tau_b = live_triangles(np.delete(edges, pick, axis=0), T)
+    rel_b, limit_b = abs(est_b - tau_b) / tau_b, rel_err_limit(m, tau_b)
+    if rel_b > limit_b:
+        raise AssertionError(f"dynamic_full burst: rel.err {rel_b:.4%} > {limit_b:.4%}")
+    plain = engine("scan", "eager")
+    plain.ingest_signed_stream(iter(items))
+    if state_sha256(plain.snapshot()) != digest_b:
+        raise AssertionError("dynamic_full burst: kernel route differs from the plain route")
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="ckpt_dynamic_", dir=ROOT / "build")
+    cut = 2 * K + 1  # the checkpoint right after the burst
+    try:
+        run_signed_stream(engine("kernel", "kernel"), iter(items[:cut]), ckpt_dir=ckpt_dir,
+                          ckpt_every=cut)
+        again = engine("kernel", "kernel")
+        rep2 = run_signed_stream(again, iter(items), ckpt_dir=ckpt_dir, ckpt_every=cut)
+    finally:
+        shutil.rmtree(ckpt_dir)
+    if rep2.resumed_from != cut or rep2.batches != len(items) - cut \
+            or state_sha256(again.snapshot()) != digest_b:
+        raise AssertionError("dynamic_full burst: checkpoint cut after the burst and resumed "
+                             "diverged")
+
+    emit({"phase": "dynamic_full", "r": r, "s": s, "K": K, "m": m,
+          "window": {"window": window, "expired": eng.diag.window_expired,
+                     "deletion_batches": n_del, "tau_live": tau_w, "estimate": est,
+                     "rel_err": rel_w, "rel_err_limit": limit_w,
+                     "edges_per_s": rep.edges_per_s, "seconds": rep.seconds,
+                     "window_clock_host_s": ring_s, "peak_device_bytes": peak, "launches": launches,
+                     "cuda_launches": cuda_launches, "state_sha256": digest,
+                     "window_sha256": ring, "plain_path_equal": True, "restore_equal": True},
+          "burst": {"deleted": s, "tau_live": tau_b, "estimate": est_b, "rel_err": rel_b,
+                    "rel_err_limit": limit_b, "seconds": burst_s,
+                    "edges_per_s": (m + s) / burst_s, "launches": burst_launches,
+                    "state_sha256": digest_b, "plain_path_equal": True,
+                    "ckpt_resume_equal": True},
+          "bulk_delete_update_ms": delete_ms, "bulk_delete_update_profile": delete_profile,
+          "bulk_delete_update_host_enqueue_ms": delete_enqueue_ms, "ok": True})
+    return {"launches": launches, "state": state, "D": D, "n_valid": n_tail}
+
+
+def phase_kernels(dev, full: dict, local: dict, dynamic: dict) -> list:
     import torch
 
     from repro_torch import rng as trng
     from repro_torch.core.bulk import (
         _chunk_randomness,
         _closing_query,
+        _delete_queries,
         _q1_queries,
         bulk_update_all,
         bulk_update_chunk,
         chunk_draws,
         chunk_structures,
+        delete_keys,
     )
     from repro_torch.core.rank import INF64 as KEY_PAD
     from repro_torch.core.rank import _next_pow2, rank_all_chunk
@@ -1172,6 +1447,28 @@ def phase_kernels(dev, full: dict, local: dict) -> list:
         lambda: multisearch_counts(kd0, q1))
     rows[-1]["shapes"] = search_shapes
 
+    # multisearch_counts on the deletion path: each estimator's f1, f2 and
+    # closing edge (3r queries, negative for unset slots) into the sorted
+    # keys of the tail's expiry batch (2^20, INT64 max past its 700,000
+    # edges), over the window run's final state; launches are the window
+    # run's (3 deletion batches and the tail's 3 searches)
+    dk = delete_keys(dynamic["D"], dynamic["n_valid"])
+    dq = _delete_queries(dynamic["state"])
+    got, want = multisearch_counts(dk, dq), multisearch_counts_plain(dk, dq)
+    for side, a, b in zip(("lt", "le"), got, want):
+        require_equal(f"multisearch deletion {side}", a, b)
+    depth = math.ceil(math.log2(dk.numel() + 1))
+    row("multisearch_counts", max(max_abs(a, b) for a, b in zip(got, want)),
+        time_ms(lambda: multisearch_counts(dk, dq), reps=20),
+        time_ms(lambda: multisearch_counts_plain(dk, dq)),
+        time_ms(lambda: (torch.searchsorted(dk, dq, side="left", out_int32=True),
+                         torch.searchsorted(dk, dq, side="right", out_int32=True)), reps=20),
+        nbytes(dk, dq) + 2 * 4 * dq.numel(), 2 * 2 * dq.numel() * depth,
+        lambda: multisearch_counts(dk, dq), path=dynamic)
+    rows[-1]["shape"] = (f"deletion: {dq.numel()} queries into {dk.numel()} keys "
+                         f"({dynamic['n_valid']} below INT64 max)")
+    rows[-1]["device_busy_ms"] = device_busy(lambda: multisearch_counts(dk, dq))["device_busy_ms"]
+
     # segment_sum: the local scheme's attribution scatter over the local
     # run's final state, 3r rows into n_vertices bins
     vals, ids = local["scheme"].attribution_inputs(local["state"], 0, r)
@@ -1270,9 +1567,11 @@ def main() -> int:
     phase_golden(dev)
     phase_golden_local(dev)
     phase_naive(dev)
+    phase_golden_dynamic(dev)
     full = phase_full(dev)
     local = phase_local_full(dev, full)
-    rows = phase_kernels(dev, full, local)
+    dynamic = phase_dynamic_full(dev, full)
+    rows = phase_kernels(dev, full, local, dynamic)
     phase_cli()
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})

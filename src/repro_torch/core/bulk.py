@@ -1,6 +1,7 @@
 """bulkUpdateAll (paper Section 4): fold a batch of edges into all r
 estimators while keeping the neighborhood sampling invariant
-(``repro.core.bulk``, insertion path).
+(``repro.core.bulk``), and its turnstile counterpart, which patches a batch
+of edge deletions out of every estimator's sample.
 
   Step 1  level-1 reservoir over E ∪ W
   Step 2  rankAll(W), then the Q1 rank/degree multisearch and the Q2
@@ -13,7 +14,8 @@ bit-identical to K ``bulk_update_all`` calls on every backend, and both are
 bit-identical to the JAX reference for the same inputs.
 
 ``n_valid`` may be a Python int or an integer tensor; ``search`` names the
-multisearch backend (``repro_torch.primitives.search``).
+multisearch backend (``repro_torch.primitives.search``). Deletions draw no
+randomness and never advance the step counter.
 """
 from __future__ import annotations
 
@@ -307,3 +309,93 @@ def bulk_update_chunk(state: EstimatorState, Ws: Tensor, n_valids: Tensor,
         return _bulk_update_chunk_scan(state, Ws, n_valids, key, step0, search)
     return _bulk_update_chunk_fused(state, Ws, n_valids, key, step0,
                                     use_kernels=(b == "kernel"))
+
+
+# ---------------------------------------------------------------------------
+# turnstile deletions (CoCoS-style liveness patching, arXiv:1802.04249)
+# ---------------------------------------------------------------------------
+INF64 = torch.iinfo(torch.int64).max
+
+
+def delete_keys(D: Tensor, n_valid: IntLike) -> Tensor:
+    """Sorted canonical int64 keys of a deletion batch D ((s, 2) int32; the
+    first ``n_valid`` rows are edges, in any order), or of K stacked ones
+    (D (K, s, 2), n_valid (K,)), one sort for all. Padding rows map to the
+    INT64 max sentinel, which no state key can equal."""
+    dmin = torch.minimum(D[..., 0], D[..., 1])
+    dmax = torch.maximum(D[..., 0], D[..., 1])
+    if isinstance(n_valid, Tensor) and n_valid.dim():
+        n_valid = n_valid.to(device=D.device)[:, None]
+    real = torch.arange(D.shape[-2], dtype=torch.int32, device=D.device) < n_valid
+    return torch.sort(torch.where(real, pack2(dmin, dmax), INF64), dim=-1).values
+
+
+def _delete_queries(state: EstimatorState) -> Tensor:
+    """The (3r,) membership queries of a deletion batch: each estimator's
+    f1 edge, f2 edge and the wedge's closing edge. Unset slots (-1
+    endpoints) pack to negative keys through ``pack2``'s sign extension, so
+    they match no real or sentinel key; ``_apply_delete_hits`` masks them
+    besides."""
+    u, v = state.f1[:, 0], state.f1[:, 1]
+    a, b = state.f2[:, 0], state.f2[:, 1]
+    o1 = torch.where((u == a) | (u == b), v, u)
+    o2 = torch.where((a == u) | (a == v), b, a)
+    return torch.cat([
+        pack2(torch.minimum(u, v), torch.maximum(u, v)),
+        pack2(torch.minimum(a, b), torch.maximum(a, b)),
+        pack2(torch.minimum(o1, o2), torch.maximum(o1, o2)),
+    ])
+
+
+def _apply_delete_hits(state: EstimatorState, hit: Tensor) -> EstimatorState:
+    """The elementwise clears of one deletion batch, from the (3r,) hit mask
+    of ``_delete_queries``: a dead f1 resets the slot, a dead f2 drops f2
+    and the closing flag, a dead closing edge clears the flag."""
+    r = state.r
+    have_f1 = state.f1[:, 0] >= 0
+    have_f2 = have_f1 & (state.f2[:, 0] >= 0)
+    hit_f1 = hit[:r] & have_f1
+    hit_f2 = hit[r:2 * r] & have_f2
+    hit_f3 = hit[2 * r:] & have_f2
+    f1 = torch.where(hit_f1[:, None], torch.full_like(state.f1, -1), state.f1)
+    chi = torch.where(hit_f1, torch.zeros_like(state.chi), state.chi)
+    f2 = torch.where((hit_f1 | hit_f2)[:, None], torch.full_like(state.f2, -1), state.f2)
+    has_f3 = state.has_f3 & ~(hit_f1 | hit_f2 | hit_f3)
+    return EstimatorState(f1, chi, f2, has_f3, state.m_seen)
+
+
+def bulk_delete_update(state: EstimatorState, D: Tensor, n_valid: IntLike,
+                       search: str = "auto") -> EstimatorState:
+    """Fold one batch of edge deletions into all estimators (the reference's
+    ``bulk_delete_update``): one multisearch of the 3r queries against the
+    batch's sorted keys, then the patch rules of ``_apply_delete_hits``.
+
+    ``m_seen`` is not decremented: it stays the insertion count that every
+    sampling draw is a function of, so a triangle whose three edges are live
+    keeps its tracking probability 1 / (m * chi), and every dead one is
+    zeroed; the estimate is unbiased for the live graph. Contract: at most
+    one live copy per edge key. No randomness is drawn and no step advances,
+    so an all-insertion signed stream equals the insertion-only path."""
+    lt, le = multisearch_bounds(delete_keys(D, n_valid), _delete_queries(state), search)
+    return _apply_delete_hits(state, le > lt)
+
+
+def bulk_delete_chunk(state: EstimatorState, Ds: Tensor, n_valids: Tensor, *,
+                      backend: str = "auto", search: str = "auto") -> EstimatorState:
+    """Fold K stacked deletion batches (Ds (K, s, 2), n_valids (K,)) into
+    the state, bit-identical to K ``bulk_delete_update`` calls (deletions
+    carry no randomness). On the "scan" ingest backend it is that loop;
+    otherwise the K key sorts are hoisted into one batched sort and each
+    membership test is ``count_lt`` plus one gathered key comparison, an
+    exact-match test equal to ``le > lt``."""
+    if resolve_ingest_backend(backend, Ds.device) == "scan":
+        for i in range(Ds.shape[0]):
+            state = bulk_delete_update(state, Ds[i], n_valids[i], search)
+        return state
+    n = Ds.shape[1]
+    for dk in delete_keys(Ds, n_valids):
+        q = _delete_queries(state)
+        lt = multisearch_lt(dk, q, search)
+        hit = (lt < n) & (dk[torch.clamp(lt, max=n - 1).long()] == q)
+        state = _apply_delete_hits(state, hit)
+    return state

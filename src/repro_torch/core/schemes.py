@@ -29,8 +29,15 @@ The port's methods take the engine's backends as keywords: ``search`` (the
 multisearch backend of the per-batch update), ``backend`` (the ingest
 backend of the chunked update) and, for ``estimate``, ``backend`` decides
 whether the local scatter runs in the kernel ("kernel") or plainly.
-The sharded estimate stage and the deletion path raise, naming the ROADMAP
-item that brings them.
+The sharded estimate stage raises, naming the ROADMAP item that brings it.
+
+Deletions and window expiry (the reference's fully-dynamic extension,
+CoCoS, arXiv:1802.04249) are one state transition for every scheme:
+``delete_update`` patches the sample so that no dead edge can contribute,
+drawing no randomness and leaving ``m_seen`` the insertion count, and
+``expire`` aliases it (an expired edge is a deletion authored by the window
+clock). ``local`` inherits both: its attribution happens at estimate time
+from the patched sample.
 """
 from __future__ import annotations
 
@@ -40,7 +47,12 @@ from typing import Callable, Dict, Optional
 import torch
 
 from repro_torch import rng
-from repro_torch.core.bulk import bulk_update_all, bulk_update_chunk
+from repro_torch.core.bulk import (
+    bulk_delete_chunk,
+    bulk_delete_update,
+    bulk_update_all,
+    bulk_update_chunk,
+)
 from repro_torch.core.estimate import coarse_estimates, estimate
 from repro_torch.core.state import EstimatorState, init_state
 from repro_torch.primitives.ingest import resolve_ingest_backend
@@ -49,7 +61,6 @@ Tensor = torch.Tensor
 _HASH_MULT = 2654435761
 _M32 = 0xFFFFFFFF
 _DISTRIBUTED = "distributed plans come with ROADMAP A.13, 'Distributed plans'"
-_DYNAMIC = "deletions and window expiry come with ROADMAP A.12, 'Dynamic streams'"
 
 
 def vertex_pool(v: Tensor, n_pools: int) -> Tensor:
@@ -86,6 +97,22 @@ class EstimatorScheme:
                                      rng.fold_in(key, step0 + i), search=search)
         return state
 
+    # -- turnstile deletions / window expiry --------------------------------
+    def delete_update(self, state, D, n_valid, *, search: str = "auto"):
+        """Fold one batch of edge deletions into the state (no randomness;
+        ``repro_torch.core.bulk.bulk_delete_update``)."""
+        return bulk_delete_update(state, D, n_valid, search)
+
+    def delete_chunk_update(self, state, Ds, n_valids, *, backend: str = "auto",
+                            search: str = "auto"):
+        """K stacked deletion batches; bit-equal to K ``delete_update``
+        calls."""
+        return bulk_delete_chunk(state, Ds, n_valids, backend=backend, search=search)
+
+    def expire(self, state, D, n_valid, *, search: str = "auto"):
+        """Window/decay expiry: the transition of ``delete_update``."""
+        return self.delete_update(state, D, n_valid, search=search)
+
     def estimate(self, state, groups: int = 9, *, backend: str = "auto") -> Tensor:
         raise NotImplementedError
 
@@ -103,12 +130,6 @@ class EstimatorScheme:
 
     def combine_estimates(self, partials, *, r: int, groups: int = 9):
         raise NotImplementedError(_DISTRIBUTED)
-
-    def delete_update(self, state, D, n_valid):
-        raise NotImplementedError(_DYNAMIC)
-
-    def expire(self, state, D, n_valid):
-        raise NotImplementedError(_DYNAMIC)
 
 
 class GlobalScheme(EstimatorScheme):

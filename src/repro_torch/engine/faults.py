@@ -1,9 +1,10 @@
 """Batch validation and quarantine for the service loop
 (``repro.engine.faults``, validation part).
 
-``run_stream`` validates every batch by default. A batch with a self-loop, a
-negative (or, with ``max_vertex``, out-of-range) vertex id, a bad
-``n_valid`` or a malformed shape would corrupt the estimator state rather
+``run_stream`` and ``run_signed_stream`` validate every batch by default.
+A batch with a self-loop, a negative (or, with ``max_vertex``,
+out-of-range) vertex id, a bad ``n_valid``, a malformed shape or (signed
+streams) a sign other than +1/-1 would corrupt the estimator state rather
 than crash, so it is quarantined: counted, kept in a bounded
 ``DeadLetterBuffer`` with its source position, never ingested, and it does
 not advance the RNG step. The reason strings are the reference's.
@@ -50,6 +51,22 @@ def validate_batch(W, n_valid=None, *, max_vertex: Optional[int] = None) -> Opti
         if max_vertex is not None and n and rows.max() >= max_vertex:
             return f"vertex id >= max_vertex={max_vertex}"
     return None
+
+
+def validate_signed_item(item, *, max_vertex: Optional[int] = None) -> Optional[str]:
+    """Validate one signed-stream item: ``(W, n_valid)`` or
+    ``(W, n_valid, sign)`` with sign strictly +1/-1 (``signed_batches``
+    never mixes signs within a batch)."""
+    if not isinstance(item, (tuple, list)) or len(item) not in (2, 3):
+        return f"malformed signed item (len {len(item) if hasattr(item, '__len__') else '?'})"
+    if len(item) == 3:
+        try:
+            sign = int(item[2])
+        except (TypeError, ValueError):
+            return f"non-integer sign {item[2]!r}"
+        if sign not in (1, -1):
+            return f"sign {sign} not in (+1, -1) (sign mixing?)"
+    return validate_batch(item[0], item[1], max_vertex=max_vertex)
 
 
 class DeadLetterBuffer:

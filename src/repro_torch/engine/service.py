@@ -23,6 +23,13 @@ items (ingested and quarantined) up to the newest ingested batch, so a
 batch that was staged but not yet ingested is never skipped. The skip counts
 whole batches, so resuming under another ``batch_size`` is refused.
 Checkpoint directories are interchangeable with the JAX package's.
+
+Signed streams (``run_signed_stream``): the same loop over ``(W, n_valid)``
+and ``(W, n_valid, sign)`` items, batch by batch, with deletions applied
+through ``engine.delete``. Every cursor is ``engine.dyn_step`` (signed
+batches applied), because deletions advance the stream and not the RNG
+step. Retries, fault sites, stale answers and deadlines come with ROADMAP
+A.9.
 """
 from __future__ import annotations
 
@@ -35,7 +42,12 @@ import numpy as np
 
 from repro_torch.data.prefetch import PrefetchQueue, superbatches
 from repro_torch.engine.engine import SnapshotMismatch, TriangleCountEngine
-from repro_torch.engine.faults import DeadLetterBuffer, ResilienceConfig, validate_batch
+from repro_torch.engine.faults import (
+    DeadLetterBuffer,
+    ResilienceConfig,
+    validate_batch,
+    validate_signed_item,
+)
 from repro_torch.train.checkpoint import CheckpointCorrupt, CheckpointManager, config_hash
 
 QueryCallback = Callable[[int, np.ndarray, np.ndarray], None]
@@ -48,7 +60,7 @@ class StreamReport:
     batches: int = 0  # batches ingested by this call (not the resumed ones)
     edges: int = 0
     seconds: float = 0.0
-    resumed_from: int = 0  # engine step restored from a checkpoint, 0 if fresh
+    resumed_from: int = 0  # engine step (dyn_step, signed) restored from a checkpoint, 0 if fresh
     ckpt_corrupt_skipped: int = 0  # torn or corrupt checkpoints walked past
     quarantined_batches: int = 0  # invalid batches diverted to dead letters
     dead_letters: Optional[DeadLetterBuffer] = field(default=None, repr=False)
@@ -202,6 +214,73 @@ def run_stream(
         if pending is not None:
             engine.ingest_chunk(pending)
             after_ingest(K, pending.edges)
+    engine.sync()
+    rep.seconds = time.perf_counter() - t0
+    if ckpt:
+        ckpt.wait()
+        save()
+        ckpt.wait()
+    return rep
+
+
+def run_signed_stream(
+    engine: TriangleCountEngine,
+    batch_iter: Iterable,
+    *,
+    ckpt_dir: Optional[str] = None,
+    ckpt_every: int = 0,
+    report_every: int = 0,
+    on_report: Optional[QueryCallback] = None,
+    prefetch_depth: int = 4,
+    resilience: Optional[ResilienceConfig] = None,
+) -> StreamReport:
+    """Drain a signed batch iterator (``graph_stream.signed_batches``) into
+    ``engine``, one batch at a time: inserts through ``engine.ingest``,
+    deletions (sign -1) through ``engine.delete``. Checkpoints are saved
+    under ``engine.dyn_step`` every ``ckpt_every`` applied batches and at the
+    end, with ``source_pos`` the source items consumed; a resume restores
+    the newest one that verifies and skips that many items. Reports land
+    where ``dyn_step`` is a multiple of ``report_every``. Chunked ingest does
+    not apply here (deletions break insert runs anywhere); drive
+    ``engine.ingest_signed_stream`` for that."""
+    res = resilience if resilience is not None else ResilienceConfig()
+    rep = StreamReport(dead_letters=DeadLetterBuffer(res.dead_letter_capacity))
+    ckpt, manifest = _restore_latest(engine, ckpt_dir, rep)
+    if manifest is not None:
+        rep.resumed_from = engine.dyn_step
+    pf = PrefetchQueue(iter(batch_iter), depth=prefetch_depth)
+    meta = {"r": engine.config.r, "batch": engine.config.batch_size,
+            "tenants": engine.config.n_tenants}
+    skip = engine.dyn_step  # signed items already folded into the state
+    if manifest is not None and "source_pos" in manifest:
+        skip = int(manifest["source_pos"])
+    t0 = time.perf_counter()
+    committed = skip  # source position of the newest applied item
+
+    def save() -> None:
+        ckpt.save(engine.dyn_step, engine.snapshot(),
+                  {"config_hash": config_hash(meta), **meta, "source_pos": committed})
+
+    for pos, item in enumerate(pf, start=1):
+        if pos <= skip:
+            continue
+        if res.validate:
+            reason = validate_signed_item(item, max_vertex=res.max_vertex)
+            if reason is not None:
+                rep.quarantined_batches += 1
+                rep.dead_letters.put(reason, pos, item)
+                continue
+        if len(item) > 2 and int(item[2]) < 0:
+            engine.delete(item[0], item[1])
+        else:
+            engine.ingest(item[0], item[1])
+        committed = pos
+        rep.batches += 1
+        rep.edges += int(np.max(np.asarray(item[1])))
+        if report_every and on_report and engine.dyn_step % report_every == 0:
+            on_report(engine.dyn_step, engine.estimate(), engine.edges_seen())
+        if ckpt and ckpt_every and rep.batches % ckpt_every == 0:
+            save()
     engine.sync()
     rep.seconds = time.perf_counter() - t0
     if ckpt:

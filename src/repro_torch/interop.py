@@ -3,7 +3,9 @@
 Both engines snapshot to the same flat dict of host numpy arrays: ``f1``,
 ``chi``, ``f2``, ``has_f3``, ``m_seen`` (each with a leading tenant axis),
 ``root_keys`` (T, 2) uint32, ``step``, ``dyn_step``, ``config`` = [r,
-batch_size, n_tenants] and ``scheme``. Because every random draw is a
+batch_size, n_tenants] and ``scheme``; a window/decay engine adds its
+live-edge ring, ``window_edges`` (T, C, 2) int32, ``window_expiry`` (T, C)
+int64 and ``window_len`` (T,) int64. Because every random draw is a
 function of (root key, step), a snapshot taken mid-stream by either engine
 continues bit-identically in the other. These functions check a snapshot
 against that format and normalise its dtypes, and hash states and estimates
@@ -19,6 +21,7 @@ _FIELDS = {
     "f1": np.int32, "chi": np.int32, "f2": np.int32, "has_f3": np.bool_,
     "m_seen": np.int64, "root_keys": np.uint32, "config": np.int64,
 }
+_WINDOW = {"window_edges": np.int32, "window_expiry": np.int64, "window_len": np.int64}
 
 
 def _normalise(snap: dict) -> dict:
@@ -35,6 +38,9 @@ def _normalise(snap: dict) -> dict:
     out["step"] = np.int64(snap["step"])
     out["dyn_step"] = np.int64(snap.get("dyn_step", snap["step"]))
     out["scheme"] = np.array(str(np.asarray(snap.get("scheme", "global"))))
+    for k, dt in _WINDOW.items():
+        if k in snap:
+            out[k] = np.array(np.asarray(snap[k]), dtype=dt)
     return out
 
 
@@ -65,3 +71,14 @@ def estimate_sha256(est) -> str:
     digests mean bit-identical estimates."""
     return hashlib.sha256(
         np.ascontiguousarray(np.asarray(est, dtype="<f8")).tobytes()).hexdigest()
+
+
+def window_sha256(snap: dict) -> str:
+    """sha256 over a window/decay snapshot's live-edge ring: window_edges
+    (int32), window_expiry and window_len (int64), little-endian. Equal
+    digests mean the same ring, row for row."""
+    s = _normalise(snap)
+    h = hashlib.sha256()
+    for k, dt in (("window_edges", "<i4"), ("window_expiry", "<i8"), ("window_len", "<i8")):
+        h.update(np.ascontiguousarray(s[k].astype(dt)).tobytes())
+    return h.hexdigest()

@@ -6,8 +6,18 @@ reference CLI's lines: ``stream: m=.. tau=..``, ``processed ..``, then
 ``estimate: ..`` and ``rel.err ..`` where the true count is known, or for
 ``--scheme local`` the per-vertex line ``local[tenant 0] sum/3=.. top5=[..]
 l1.err=..``. For the same arguments these lines are the JAX CLI's (run
-there with ``--ckpt-every 0``). ``--ckpt-dir DIR --ckpt-every N`` saves a
-checkpoint every N batches and resumes from DIR's newest one.
+there with ``--ckpt-every 0``). ``--ckpt-every N`` saves a checkpoint every
+N batches into ``--ckpt-dir`` (default ``repro_stream_ckpt`` in the temp
+directory, ``/tmp`` unless ``TMPDIR`` says otherwise) and resumes from its
+newest one.
+
+Dynamic streams: ``--deletions p`` deletes each edge later in the stream
+with probability p and drains the signed stream through
+``run_signed_stream``; ``--window N`` keeps the newest N inserted edges
+live, ``--decay D`` gives each a lifetime of mean D insertions. The
+``stream:`` line then reads ``m=.. signed=.. live=.. tau_live=..``, a
+``dynamic:`` line counts deletion batches and expired edges, and the truth
+behind ``estimate:`` (or ``local[tenant 0]``) is the live edge set.
 
   PYTHONPATH=src python -m repro_torch.launch.stream --graph planted \\
       --triangles 300 --edges 20000 --nodes 30000 --estimators 65536 \\
@@ -16,11 +26,15 @@ checkpoint every N batches and resumes from DIR's newest one.
       --nodes 500 --estimators 4096 --batch 512
   PYTHONPATH=src python -m repro_torch.launch.stream --scheme local --pools 4 \\
       --graph er --nodes 100 --edges 1500      # per-vertex counts, on the GPU
+  PYTHONPATH=src python -m repro_torch.launch.stream --device cpu --graph er \\
+      --nodes 30 --edges 200 --estimators 4096 --batch 16 --deletions 0.2
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
+import tempfile
 
 import numpy as np
 
@@ -28,10 +42,13 @@ from repro_torch.core.sequential import count_triangles, local_triangle_counts
 from repro_torch.data.graph_stream import (
     barabasi_albert_stream,
     batches,
+    churn_stream,
+    dynamic_live_edges,
     erdos_renyi_stream,
     planted_triangle_stream,
+    signed_batches,
 )
-from repro_torch.engine import EngineConfig, TriangleCountEngine, run_stream
+from repro_torch.engine import EngineConfig, TriangleCountEngine, run_signed_stream, run_stream
 
 
 def make_stream(args):
@@ -66,6 +83,30 @@ def add_scheme_flags(ap) -> None:
     ap.add_argument("--pools", type=int, default=1,
                     help="local scheme: estimator pools vertices hash into "
                          "(must divide --estimators)")
+
+
+def add_dynamic_flags(ap) -> None:
+    """The turnstile and window flags."""
+    ap.add_argument("--deletions", type=float, default=0.0,
+                    help="turnstile churn: each edge is deleted later in the stream "
+                         "with this probability (0 = insertion-only)")
+    ap.add_argument("--window", type=int, default=0,
+                    help="count-based sliding window: keep only the most recent N "
+                         "inserted edges live (0 = unbounded)")
+    ap.add_argument("--decay", type=float, default=0.0,
+                    help="exponential decay: mean edge lifetime in insertions, > 1 "
+                         "(0 = off; excludes --window)")
+
+
+def make_dynamic_stream(args, edges):
+    """(signed stream, live edge set) for the dynamic flags: the live set,
+    after deletions and window or decay expiry, is the estimate's truth."""
+    if args.deletions:
+        stream = churn_stream(edges, args.deletions, seed=args.seed + 1)
+    else:  # window/decay only: an all-insert signed stream
+        stream = np.concatenate([edges, np.ones((len(edges), 1), np.int32)], axis=1)
+    live = dynamic_live_edges(stream, window=args.window, decay=args.decay, seed=args.seed)
+    return stream, live
 
 
 def format_topk(est, true_counts=None, top: int = 5) -> str:
@@ -104,37 +145,53 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     add_scheme_flags(ap)
-    ap.add_argument("--ckpt-dir", default=None,
-                    help="checkpoint directory; the run resumes from its newest "
-                         "checkpoint that verifies")
+    add_dynamic_flags(ap)
+    ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
+                                                       "repro_stream_ckpt"),
+                    help="checkpoint directory, used where --ckpt-every is set; the "
+                         "run resumes from its newest checkpoint that verifies")
     ap.add_argument("--ckpt-every", type=int, default=0,
                     help="save a checkpoint every N batches (0 = off)")
     ap.add_argument("--assert-rel-err", type=float, default=0.0,
                     help="exit nonzero unless the estimate lands within this "
                          "relative error of the true count")
     args = ap.parse_args(argv)
-    if args.ckpt_every and not args.ckpt_dir:
-        ap.error("--ckpt-every needs --ckpt-dir")
 
     edges, tau = make_stream(args)
-    print(f"stream: m={len(edges)} tau={tau}", flush=True)
+    dynamic = bool(args.deletions or args.window or args.decay)
+    truth_edges = edges
+    if dynamic:
+        stream, truth_edges = make_dynamic_stream(args, edges)
+        tau = count_triangles(truth_edges) if len(truth_edges) <= 2_000_000 else None
+        print(f"stream: m={len(edges)} signed={len(stream)} live={len(truth_edges)} "
+              f"tau_live={tau}", flush=True)
+    else:
+        print(f"stream: m={len(edges)} tau={tau}", flush=True)
     engine = TriangleCountEngine(EngineConfig(
         r=args.estimators, batch_size=args.batch, groups=args.groups,
-        seeds=(args.seed,), chunk_size=args.chunk, device=args.device,
-        **scheme_args(args),
+        seeds=(args.seed,), chunk_size=args.chunk, window=args.window, decay=args.decay,
+        device=args.device, **scheme_args(args),
     ))
-    rep = run_stream(engine, batches(edges, args.batch),
-                     ckpt_dir=args.ckpt_dir if args.ckpt_every else None,
-                     ckpt_every=args.ckpt_every)
+    ckpt = {"ckpt_dir": args.ckpt_dir if args.ckpt_every else None,
+            "ckpt_every": args.ckpt_every}
+    if args.deletions:
+        # deletion batches break insert runs, so the signed loop drives it
+        rep = run_signed_stream(engine, signed_batches(stream, args.batch), **ckpt)
+    else:
+        rep = run_stream(engine, batches(edges, args.batch), **ckpt)
     dt = max(rep.seconds, 1e-9)
     print(f"processed {rep.edges} edges in {dt:.2f}s "
           f"({rep.edges / dt / 1e6:.2f}M edges/s, r={args.estimators}, "
           f"device={engine.device})", flush=True)
+    if dynamic:
+        print(f"dynamic: deletes={engine.diag.delete_batches} batches "
+              f"expired={engine.diag.window_expired} edges "
+              f"(dyn_step={engine.dyn_step})", flush=True)
     ests = engine.estimate()
     if args.scheme == "local":
         true_counts = None
         if tau is not None:
-            true_counts = local_triangle_counts(edges, args.vertices or args.nodes)
+            true_counts = local_triangle_counts(truth_edges, args.vertices or args.nodes)
         print_local_estimates(ests[0], 0, true_counts)
         return
     est = float(ests[0])

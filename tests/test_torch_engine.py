@@ -128,9 +128,8 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 def test_unported_features_name_their_roadmap_item():
-    for kw, item in (({"n_tenants": 2}, "Multi-tenant"), ({"window": 10}, "Dynamic streams")):
-        with pytest.raises(NotImplementedError, match=item):
-            EngineConfig(r=64, batch_size=8, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="Multi-tenant"):
+        EngineConfig(r=64, batch_size=8, device="cpu", n_tenants=2)
     # schemes are ported: an unknown name raises the reference's ValueError
     with pytest.raises(ValueError, match=r"unknown scheme 'nope'; registered: "
                                          r"\['global', 'local', 'naive'\]"):

@@ -9,6 +9,12 @@ the port must reproduce bit for bit.
                          ``sum/3``, and the CLI's ``local[tenant 0]`` line;
   ``naive_small.json``   the naive scheme on three batches (one K = 2 chunk
                          and a ragged batch): the state's sha256.
+  ``dynamic_small.json`` three dynamic runs on the same stream: ``global``
+                         under churn (p = 0.2) through ``run_signed_stream``,
+                         ``global`` with a sliding window chunked at K = 4,
+                         and ``local`` with exponential decay; each run's
+                         state and window-ring sha256, its estimate (or
+                         estimate sha256 and ``sum/3``) and its counters.
 
 ``chip_smoke.py`` holds the port's CUDA kernel path to them on a machine
 without JAX. These tests regenerate them from the JAX package, check the
@@ -32,18 +38,32 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import repro  # noqa: F401,E402  -- enables x64
 from repro.data.graph_stream import batches as jax_batches  # noqa: E402
+from repro.data.graph_stream import churn_stream as jax_churn  # noqa: E402
+from repro.data.graph_stream import signed_batches as jax_signed  # noqa: E402
 from repro.data.graph_stream import planted_triangle_stream as jax_planted  # noqa: E402
 from repro.engine import EngineConfig as JaxConfig  # noqa: E402
 from repro.engine import TriangleCountEngine as JaxEngine  # noqa: E402
+from repro.engine import run_signed_stream as jax_run_signed_stream  # noqa: E402
 from repro.engine import run_stream as jax_run_stream  # noqa: E402
 
-from repro_torch.data.graph_stream import batches, planted_triangle_stream  # noqa: E402
-from repro_torch.engine import EngineConfig, TriangleCountEngine, run_stream  # noqa: E402
-from repro_torch.interop import estimate_sha256, state_sha256  # noqa: E402
+from repro_torch.data.graph_stream import (  # noqa: E402
+    batches,
+    churn_stream,
+    planted_triangle_stream,
+    signed_batches,
+)
+from repro_torch.engine import (  # noqa: E402
+    EngineConfig,
+    TriangleCountEngine,
+    run_signed_stream,
+    run_stream,
+)
+from repro_torch.interop import estimate_sha256, state_sha256, window_sha256  # noqa: E402
 
 GOLDEN = ROOT / "src" / "repro_torch" / "golden" / "stream_small.json"
 LOCAL_GOLDEN = GOLDEN.with_name("local_small.json")
 NAIVE_GOLDEN = GOLDEN.with_name("naive_small.json")
+DYNAMIC_GOLDEN = GOLDEN.with_name("dynamic_small.json")
 # planted graph: 150 triangles + 2000 noise edges = 2450 edges in batches of
 # 256 -> 9 full batches and a ragged one of 146; with K = 4 that is two
 # chunks, then one full and one ragged batch on the per-batch path
@@ -57,6 +77,17 @@ LOCAL_CLI_ARGS = [*CLI_ARGS, "--scheme", "local", "--pools", "4"]
 # the naive scheme is O(r * s) sequential per batch: its first 700 edges,
 # batches of 256 -> one K = 2 chunk and a ragged batch of 188
 NAIVE = {"edges": 700, "chunk_size": 2}
+# the dynamic runs: churn over the stream's first 1,200 edges (signed runs of
+# about 1/p edges, batch by batch), a window of 1,500 edges that expires 548
+# after the second chunk, then 256 and 146 after the two tail batches, and
+# decay of mean lifetime 1,500 insertions under the local scheme, batch by
+# batch
+DYNAMIC = {
+    "churn": {"scheme": "global", "chunk_size": 1, "deletions": 0.2, "churn_seed": 4,
+              "edges": 1200},
+    "window": {"scheme": "global", "chunk_size": 4, "window": 1500},
+    "decay": {"scheme": "local", "chunk_size": 1, "decay": 1500.0},
+}
 
 
 def jax_golden() -> dict:
@@ -107,6 +138,64 @@ def jax_naive_golden() -> dict:
         "edges": NAIVE["edges"], "scheme": "naive", "step": int(eng.snapshot()["step"]),
         "state_sha256": state_sha256(eng.snapshot()), "estimate": float(eng.estimate()[0]),
     }
+
+
+def _dynamic_record(snap, est, diag, scheme: str) -> dict:
+    """What a dynamic golden run records, from either package's engine."""
+    rec = {"step": int(snap["step"]), "dyn_step": int(snap["dyn_step"]),
+           "state_sha256": state_sha256(snap), "delete_batches": int(diag.delete_batches),
+           "window_expired": int(diag.window_expired)}
+    if "window_edges" in snap:
+        rec["window_sha256"] = window_sha256(snap)
+    if scheme == "local":
+        rec.update(estimate_sha256=estimate_sha256(est), sum3=float(est.sum()) / 3)
+    else:
+        rec["estimate"] = float(est)
+    return rec
+
+
+def _dynamic_config(run: dict) -> dict:
+    """The engine keyword arguments of a dynamic run."""
+    return {"r": ENGINE["r"], "batch_size": ENGINE["batch_size"],
+            "chunk_size": run["chunk_size"], "groups": ENGINE["groups"],
+            "seeds": (ENGINE["seed"],), "scheme": run["scheme"],
+            "scheme_params": LOCAL if run["scheme"] == "local" else None,
+            "window": run.get("window", 0), "decay": run.get("decay", 0.0)}
+
+
+def jax_dynamic_golden() -> dict:
+    """The dynamic golden record, computed by the JAX reference."""
+    edges, _ = jax_planted(STREAM["triangles"], STREAM["noise_edges"],
+                           STREAM["vertices"], seed=STREAM["seed"])
+    runs = {}
+    for name, run in DYNAMIC.items():
+        eng = JaxEngine(JaxConfig(**_dynamic_config(run)))
+        if run.get("deletions"):
+            stream = jax_churn(edges[: run["edges"]], run["deletions"], seed=run["churn_seed"])
+            jax_run_signed_stream(eng, jax_signed(stream, ENGINE["batch_size"]))
+        else:
+            jax_run_stream(eng, jax_batches(edges, ENGINE["batch_size"]))
+        rec = _dynamic_record(eng.snapshot(), np.asarray(eng.estimate()[0]), eng.diag,
+                              run["scheme"])
+        runs[name] = {**run, **rec}
+    return {"written_by": "repro (JAX) engine via tests/test_torch_golden.py",
+            "stream": STREAM, "engine": ENGINE, "scheme_params_local": LOCAL, "runs": runs}
+
+
+def port_dynamic_run(name: str, device: str = "cpu", ingest: str = "auto",
+                     multisearch: str = "auto") -> dict:
+    """One dynamic golden run through the port; returns its record."""
+    run = DYNAMIC[name]
+    edges, _ = planted_triangle_stream(STREAM["triangles"], STREAM["noise_edges"],
+                                       STREAM["vertices"], seed=STREAM["seed"])
+    eng = TriangleCountEngine(EngineConfig(device=device, ingest=ingest,
+                                           multisearch=multisearch, **_dynamic_config(run)))
+    if run.get("deletions"):
+        stream = churn_stream(edges[: run["edges"]], run["deletions"], seed=run["churn_seed"])
+        run_signed_stream(eng, signed_batches(stream, ENGINE["batch_size"]))
+    else:
+        run_stream(eng, batches(edges, ENGINE["batch_size"]))
+    return _dynamic_record(eng.snapshot(), eng.estimate()[0], eng.diag, run["scheme"])
 
 
 def _cli_line(module: str, args, prefix: str, extra=()) -> str:
@@ -178,6 +267,27 @@ def test_committed_local_and_naive_golden_match_jax(local_golden):
         assert naive[k] == fresh[k], k
 
 
+@pytest.fixture(scope="module")
+def dynamic_golden():
+    return json.loads(DYNAMIC_GOLDEN.read_text())
+
+
+def test_committed_dynamic_golden_matches_jax(dynamic_golden):
+    fresh = jax_dynamic_golden()
+    assert dynamic_golden["runs"] == fresh["runs"]
+    assert {k: v for k, v in dynamic_golden.items() if k != "written_by"} == {
+        k: v for k, v in json.loads(json.dumps(fresh)).items() if k != "written_by"}
+
+
+@pytest.mark.parametrize("name", list(DYNAMIC))
+@pytest.mark.parametrize("ingest,multisearch", [("scan", "eager"), ("kernel", "kernel")])
+def test_port_reproduces_dynamic_golden(dynamic_golden, name, ingest, multisearch):
+    want = {k: v for k, v in dynamic_golden["runs"][name].items() if k not in DYNAMIC[name]}
+    assert port_dynamic_run(name, "cpu", ingest, multisearch) == want
+    assert want["window_expired"] > 0 or want["delete_batches"] > 0
+    assert want.get("estimate", want.get("sum3")) > 0
+
+
 @pytest.mark.parametrize("ingest,multisearch", [("scan", "eager"), ("kernel", "kernel")])
 def test_port_reproduces_local_golden(local_golden, ingest, multisearch):
     eng = port_run("cpu", ingest, multisearch, "local", LOCAL)
@@ -215,5 +325,6 @@ if __name__ == "__main__":
                                             "local[tenant 0] ", ["--ckpt-every", "0"])}
     LOCAL_GOLDEN.write_text(json.dumps(local, indent=1) + "\n")
     NAIVE_GOLDEN.write_text(json.dumps(jax_naive_golden(), indent=1) + "\n")
-    for path in (GOLDEN, LOCAL_GOLDEN, NAIVE_GOLDEN):
+    DYNAMIC_GOLDEN.write_text(json.dumps(jax_dynamic_golden(), indent=1) + "\n")
+    for path in (GOLDEN, LOCAL_GOLDEN, NAIVE_GOLDEN, DYNAMIC_GOLDEN):
         print(path.read_text())

@@ -229,9 +229,7 @@ def test_unported_scheme_stages_name_their_roadmap_item():
     for sch in (schemes.GlobalScheme(), schemes.LocalScheme(n_vertices=4)):
         for call, item in ((lambda: sch.axis_roles(), "A.13"),
                            (lambda: sch.partial_estimate(None, offset=0, r=4), "A.13"),
-                           (lambda: sch.combine_estimates(None, r=4), "A.13"),
-                           (lambda: sch.delete_update(None, None, 0), "A.12"),
-                           (lambda: sch.expire(None, None, 0), "A.12")):
+                           (lambda: sch.combine_estimates(None, r=4), "A.13")):
             with pytest.raises(NotImplementedError, match=item):
                 call()
 
