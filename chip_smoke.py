@@ -82,6 +82,20 @@ Phases, each of which raises on failure (nothing is caught):
              bulk_delete_update: its time back to back (CUDA events), its
              device busy time (torch.profiler) and its host enqueue time;
              and the host seconds of the window clock (ring appends, flushes);
+  tenants_full  a bank of 4 tenants at the full width through the same
+             engine: (a) global over four distinct streams, the planted
+             stream under four seed-drawn vertex relabelings (the identity
+             for tenant 0, so tau = 262,144 each), chunked with the ragged
+             tail per batch: tenant t's state equals a one-tenant engine
+             seeded 7 + t on stream t, tenant 0 phase full's; (b) local (8
+             pools, 2^22 vertices) on the broadcast stream: tenant 0 equals
+             phase local_full, every tenant's estimate its own one-tenant
+             scatter; (c) dynamic_full's deletion burst, broadcast, through
+             ingest_signed_stream: tenant 0 equals that burst. Every tenant's
+             rel.err is gated (rel_err_limit; sum/3 for local). It records
+             aggregate edges/s, peak device bytes, and a bank chunk's and a
+             bank per-batch update's time, device busy time and device
+             operations beside one tenant's;
   kernels    each kernel and its plain version at the main path's full-size
              shapes: equal, and timed with CUDA events beside its bound and,
              where one PyTorch call computes the same function, that call;
@@ -98,7 +112,14 @@ Phases, each of which raises on failure (nothing is caught):
              route's chunk and its hoisted draws, and the ragged tail
              batch's time; and the structure build and the tail's
              per-batch update stage by stage (CUDA events between stages,
-             each replica held equal to the function it writes out);
+             each replica held equal to the function it writes out); then
+             each kernel's bank form at T = 4 (fused_ingest over the bank's
+             chunk with a (T,) step0, the tile sort over T·K tiles, segscan
+             over T·K segments, multisearch_counts over T rows of Q1, a
+             row-strided view, segment_sum over the local bank): equal to
+             its plain version and to T one-tenant calls bit for bit, with
+             the CUDA launches of one one-tenant call, and timed beside T
+             times the one-tenant call;
   cli        python -m repro_torch.launch.stream prints the golden CLI lines
              (global and local).
 
@@ -137,7 +158,7 @@ INT32_OPS_PER_S = 67e12
 # FP64 outside the tensor cores (NVIDIA data sheet, H100 SXM)
 FP64_OPS_PER_S = 34e12
 FULL = {"r": 2**21, "s": 2**20, "K": 4, "edges": 9_088_608, "triangles": 262_144,
-        "vertices": 2**22, "seed": 7, "groups": 9, "pools": 8}
+        "vertices": 2**22, "seed": 7, "groups": 9, "pools": 8, "tenants": 4}
 KERNELS = {  # name -> (source, TPU kernel it replaces)
     "fused_ingest": ("src/repro_torch/csrc/fused_ingest.cu",
                      "src/repro/kernels/fused_ingest.py:67"),
@@ -150,6 +171,9 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                     "src/repro/kernels/segment_sum.py:25"),
 }
 INF64 = np.iinfo(np.int64).max
+# the rel.err limit of the full-size global estimate and of the local
+# scheme's sum/3 (the reckoning is in phase_full)
+REL_ERR_LIMIT = 0.05
 
 
 def emit(obj) -> None:
@@ -357,53 +381,24 @@ def structure_stages(Ws, n_valids, mark):
 def per_batch_stages(state, W, n_valid, key, mark):
     """``core.bulk.bulk_update_all`` on the kernel searches written out
     stage by stage, with ``mark`` after each: step 1 with its draw,
-    ``rank_all`` split into its arc sort, its ranks (the ``segscan`` kernel
-    where the checkout's ``rank_all`` takes ``use_kernels``, else
-    ``segmented_iota``'s cummax) and the rest, step 2 with its draws, and
-    step 3. Returns the new state, which the caller holds against
+    ``rank_all`` on the kernels (the chunk route's structure build, one
+    batch's tiles, which ``structure_stages`` splits further; in a checkout
+    before that, a ``torch.sort`` build), step 2 with its draws, and step 3.
+    Returns the new state, which the caller holds against
     ``bulk_update_all``."""
     import inspect
-
-    import torch
 
     from repro_torch import rng as trng
     from repro_torch.core import rank as trank
     from repro_torch.core.bulk import step1_level1, step2_level2, step3_closing
     from repro_torch.core.state import EstimatorState
-    from repro_torch.primitives.segscan import segment_starts, segmented_iota
-    from repro_torch.primitives.sort import pack2, sort_by_key
 
     k = trng.split(key)
     f1, chi_m, f2, has_f3, f1_bpos = step1_level1(state, W, n_valid, k[0])
     mark("step1_level1")
-    s = W.shape[0]
-    dev = W.device
-    pos1 = torch.arange(s, dtype=torch.int32, device=dev)
-    valid_e = pos1 < n_valid
-    src = torch.cat([W[:, 0], W[:, 1]])
-    dst = torch.cat([W[:, 1], W[:, 0]])
-    pos = torch.cat([pos1, pos1])
-    valid_a = torch.cat([valid_e, valid_e])
-    kd = trank._inf_where(valid_a, pack2(src, (s - 1) - pos))
-    kd_s, src_s, dst_s, pos_s = sort_by_key(kd, src, dst, pos)
-    mark("rank_all_arc_sort")
-    starts = segment_starts(src_s)
-    if "use_kernels" in inspect.signature(trank.rank_all).parameters:
-        from repro_torch.kernels.segscan import segscan
-
-        rank_s = segscan(torch.ones(2 * s, dtype=torch.int32, device=dev), starts) - 1
-        mark("rank_all_ranks_segscan")
-    else:
-        rank_s = segmented_iota(starts)
-        mark("rank_all_ranks_segmented_iota")
-    arc = torch.arange(2 * s, device=dev)
-    kr = trank._inf_where(arc < 2 * n_valid, pack2(src_s, rank_s))
-    emin = torch.minimum(W[:, 0], W[:, 1])
-    emax = torch.maximum(W[:, 0], W[:, 1])
-    ek = trank._inf_where(valid_e, pack2(emin, emax))
-    ek_s, epos_s = sort_by_key(ek, pos1)
-    R = trank.RankStructure(kd_s, kr, src_s, dst_s, pos_s, rank_s, ek_s, epos_s)
-    mark("rank_all_key_rank_and_edge_sort")
+    kernels = "use_kernels" in inspect.signature(trank.rank_all).parameters
+    R = trank.rank_all(W, n_valid, **({"use_kernels": True} if kernels else {}))
+    mark("rank_all")
     f2, chi, has_f3, f2_bpos = step2_level2(f1, chi_m, f2, has_f3, f1_bpos, R, k[1], "kernel")
     mark("step2_level2")
     has_f3 = step3_closing(f1, f2, has_f3, f2_bpos, R, "kernel")
@@ -890,6 +885,7 @@ def planted_full(seed: int):
 def phase_full(dev) -> dict:
     import torch
 
+    from repro_torch.core.state import tenant_state
     from repro_torch.data.graph_stream import batches
     from repro_torch.engine import EngineConfig, TriangleCountEngine, run_stream
     from repro_torch.interop import state_sha256
@@ -926,8 +922,8 @@ def phase_full(dev) -> dict:
     # noise's degrees) that is sqrt(9.09e6 * 15 / (2^21 * 262144)) ~ 1.6%;
     # for these disjoint triangles chi <= 2, about 0.6%. The median of 8
     # group means widens it a little; 5% is about three of the looser sigmas.
-    if rel > 0.05:
-        raise AssertionError(f"full: rel.err {rel:.4%} > 5%")
+    if rel > REL_ERR_LIMIT:
+        raise AssertionError(f"full: rel.err {rel:.4%} > {REL_ERR_LIMIT:.0%}")
 
     plain = engine("scan", "eager")
     t0 = time.perf_counter()
@@ -954,7 +950,7 @@ def phase_full(dev) -> dict:
     run_stream(resumed, batches(edges, s))  # run_stream skips the first engine.step batches
     if state_sha256(resumed.snapshot()) != digest:
         raise AssertionError("full: snapshot after chunk 1 + restore diverged")
-    chunk_two_without_host_draws(dev, first.state, edges)
+    chunk_two_without_host_draws(dev, tenant_state(first.state, 0), edges)
 
     emit({"phase": "full", "r": FULL["r"], "s": s, "K": K, "m": int(len(edges)),
           "tau": tau, "estimate": est, "rel_err": rel, "edges_per_s": rep.edges_per_s,
@@ -963,7 +959,8 @@ def phase_full(dev) -> dict:
           "cuda_launches": cuda_launches, "state_sha256": digest,
           "plain_path_equal": True, "restore_equal": True,
           "validate_ms_per_batch": validate_ms, "kernel_route_without_host_draws_equal": True})
-    return {"launches": launches, "state": eng.state, "edges": edges, "tau": tau}
+    return {"launches": launches, "state": tenant_state(eng.state, 0), "edges": edges, "tau": tau,
+            "digest": digest, "edges_per_s": rep.edges_per_s}
 
 
 def chunk_two_without_host_draws(dev, state, edges) -> None:
@@ -1004,6 +1001,7 @@ def chunk_two_without_host_draws(dev, state, edges) -> None:
 def phase_local_full(dev, full: dict) -> dict:
     import torch
 
+    from repro_torch.core.state import tenant_state
     from repro_torch.data.graph_stream import batches
     from repro_torch.engine import EngineConfig, TriangleCountEngine, run_stream
     from repro_torch.interop import state_sha256
@@ -1042,8 +1040,9 @@ def phase_local_full(dev, full: dict) -> dict:
     l1 = float(np.abs(est - truth).sum() / truth.sum())
     # sum/3 is the mean of r coarse estimates: the global estimator's mean
     # without the median, so the 5% limit of the full phase holds here too
-    if rel > 0.05:
-        raise AssertionError(f"local_full: sum/3 {sum3} misses tau {tau} by {rel:.4%} > 5%")
+    if rel > REL_ERR_LIMIT:
+        raise AssertionError(f"local_full: sum/3 {sum3} misses tau {tau} by {rel:.4%} > "
+                             f"{REL_ERR_LIMIT:.0%}")
 
     plain = engine("scan", "eager")
     run_stream(plain, batches(edges, s))
@@ -1080,7 +1079,8 @@ def phase_local_full(dev, full: dict) -> dict:
           "peak_device_bytes": peak, "launches": launches, "cuda_launches": cuda_launches,
           "state_sha256": digest, "plain_path_equal": True, "restore_equal": True,
           "ckpt_resume_equal": True})
-    return {"launches": launches, "state": eng.state, "scheme": eng.scheme}
+    return {"launches": launches, "state": tenant_state(eng.state, 0), "scheme": eng.scheme,
+            "digest": digest, "estimate": est, "edges_per_s": rep.edges_per_s}
 
 
 def live_triangles(live: np.ndarray, T: int) -> int:
@@ -1108,6 +1108,7 @@ def phase_dynamic_full(dev, full: dict) -> dict:
     import torch
 
     from repro_torch.core.bulk import bulk_delete_update
+    from repro_torch.core.state import tenant_state
     from repro_torch.data.graph_stream import batches
     from repro_torch.engine import EngineConfig, TriangleCountEngine, run_signed_stream, run_stream
     from repro_torch.interop import state_sha256, window_sha256
@@ -1174,7 +1175,7 @@ def phase_dynamic_full(dev, full: dict) -> dict:
     # keys, the rest INT64 max) against the final state's 3r queries
     D = torch.zeros((s, 2), dtype=torch.int32, device=dev)
     D[:n_tail] = torch.from_numpy(edges[head - window: m - window]).to(dev)
-    state = eng.state
+    state = tenant_state(eng.state, 0)
 
     def delete_once():
         return bulk_delete_update(state, D, n_tail, "kernel")
@@ -1247,7 +1248,379 @@ def phase_dynamic_full(dev, full: dict) -> dict:
                     "ckpt_resume_equal": True},
           "bulk_delete_update_ms": delete_ms, "bulk_delete_update_profile": delete_profile,
           "bulk_delete_update_host_enqueue_ms": delete_enqueue_ms, "ok": True})
-    return {"launches": launches, "state": state, "D": D, "n_valid": n_tail}
+    return {"launches": launches, "state": state, "D": D, "n_valid": n_tail, "burst_items": items,
+            "burst_digest": digest_b, "burst_tau": tau_b, "burst_s": burst_s}
+
+
+def relabeled(edges: np.ndarray, tenant: int) -> np.ndarray:
+    """Tenant ``tenant``'s stream: ``edges`` under a vertex relabeling drawn
+    from the seed (the identity for tenant 0), an isomorphic graph with the
+    same tau and the same edge order."""
+    if tenant == 0:
+        return edges
+    perm = np.random.default_rng(FULL["seed"] + 100 + tenant).permutation(FULL["vertices"])
+    return perm.astype(np.int32)[edges]
+
+
+def bank_batches(streams: list):
+    """(W (T, s, 2), n_valid) items of T equally long streams, one batch of
+    each per item; the ragged tail's count is the same for every tenant."""
+    s, T, m = FULL["s"], len(streams), len(streams[0])
+    for lo in range(0, m, s):
+        n = min(s, m - lo)
+        W = np.zeros((T, s, 2), np.int32)
+        for t, e in enumerate(streams):
+            W[t, :n] = e[lo:lo + n]
+        yield W, n
+
+
+def phase_tenants_full(dev, full: dict, local: dict, dynamic: dict) -> dict:
+    """A bank of T = 4 tenants at the full width (r = 2^21, s = 2^20, K = 4):
+    (a) global over four distinct streams, the planted stream under four
+    vertex relabelings (the identity for tenant 0), through run_stream:
+    tenant t equals a one-tenant engine seeded 7 + t on stream t, tenant 0
+    phase full's state; (b) local (8 pools, 2^22 vertices) on the broadcast
+    stream: tenant 0 equals phase local_full, every tenant's estimate the
+    one-tenant scatter of its own state; (c) the deletion burst of phase
+    dynamic_full, broadcast, through ingest_signed_stream: tenant 0 equals
+    that phase's burst. Each tenant's rel.err is gated with rel_err_limit.
+    Records aggregate edges/s, peak bytes (and what a chunk and its
+    structure build allocate beyond the resident state), and a bank chunk's
+    and a bank per-batch update's device time and operations beside one
+    tenant's."""
+    import torch
+
+    from repro_torch import rng as trng
+    from repro_torch.core.bulk import bulk_update_all, bulk_update_chunk, chunk_structures
+    from repro_torch.core.state import tenant_state
+    from repro_torch.data.graph_stream import batches
+    from repro_torch.engine import EngineConfig, TriangleCountEngine, run_stream
+    from repro_torch.interop import state_sha256, tenant_snapshot
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    edges, tau = full["edges"], full["tau"]
+    s, K, r, T, V = FULL["s"], FULL["K"], FULL["r"], FULL["tenants"], FULL["vertices"]
+    m = len(edges)
+    seeds = tuple(FULL["seed"] + t for t in range(T))
+
+    def engine(n_tenants, tenant_seeds, **kw):
+        return TriangleCountEngine(EngineConfig(
+            r=r, batch_size=s, chunk_size=K, groups=FULL["groups"], n_tenants=n_tenants,
+            seeds=tenant_seeds, device=dev.type, ingest="kernel", multisearch="kernel", **kw))
+
+    def run(name, kernels, drive):
+        """Drive the bank with every count zeroed just before and read just
+        after; every kernel of the path must have launched."""
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        out = drive()
+        torch.cuda.synchronize(dev)
+        launches = dict(LAUNCHES)
+        missing = [k for k in kernels if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"tenants_full {name}: kernels never launched: {missing}")
+        return out, launches, torch.cuda.max_memory_allocated(dev)
+
+    def rel_errs(ests, truth):
+        errs = [abs(float(e) - truth) / truth for e in ests]
+        limit = rel_err_limit(m, truth)
+        if max(errs) > limit:
+            raise AssertionError(f"tenants_full: rel.err {errs} over the limit {limit:.4%}")
+        return errs, limit
+
+    # (a) global over four relabeled streams
+    streams = [relabeled(edges, t) for t in range(T)]
+    bank = engine(T, seeds)
+    rep, launches, peak = run("global", ("fused_ingest", "bitonic_sort_tiles", "segscan",
+                                         "segmented_max_scan", "multisearch_counts"),
+                              lambda: run_stream(bank, bank_batches(streams)))
+    snap = bank.snapshot()
+    digests = [state_sha256(tenant_snapshot(snap, t)) for t in range(T)]
+    if digests[0] != full["digest"]:
+        raise AssertionError("tenants_full global: tenant 0 differs from phase full")
+    t0 = time.perf_counter()
+    for t in range(1, T):
+        one = engine(1, (seeds[t],))
+        run_stream(one, batches(streams[t], s))
+        if state_sha256(one.snapshot()) != digests[t]:
+            raise AssertionError(f"tenants_full global: tenant {t} differs from a one-tenant "
+                                 f"engine seeded {seeds[t]} on its stream")
+    one_tenant_runs_s = time.perf_counter() - t0
+    errs, limit = rel_errs(bank.estimate(), tau)
+    # a bank chunk and a bank per-batch update (the ragged tail) beside one
+    # tenant's: device time, device busy time and operations
+    state = bank.state
+    keys = torch.stack([trng.PRNGKey(seed, dev) for seed in seeds])
+    Ws = torch.from_numpy(np.stack([e[:K * s].reshape(K, s, 2) for e in streams])).to(dev)
+    nv = torch.full((T, K), s, dtype=torch.int32, device=dev)
+    head = 2 * K * s
+    W_tail = torch.zeros((T, s, 2), dtype=torch.int32, device=dev)
+    W_tail[:, : m - head] = torch.from_numpy(np.stack([e[head:] for e in streams])).to(dev)
+    n_tail = m - head
+    one_state = tenant_state(state, 0)
+    bank_chunk = lambda: bulk_update_chunk(state, Ws, nv, keys, 0, backend="kernel")
+    one_chunk = lambda: bulk_update_chunk(one_state, Ws[0], nv[0], keys[0], 0, backend="kernel")
+    bank_tail = lambda: bulk_update_all(state, W_tail, n_tail, keys, "kernel")
+    one_tail = lambda: bulk_update_all(one_state, W_tail[0], n_tail, keys[0], "kernel")
+    def extra_peak(fn) -> int:
+        """The device bytes ``fn`` allocates at its peak beyond what is
+        already allocated (the banks' states, the staged chunks)."""
+        torch.cuda.synchronize(dev)
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        fn()
+        torch.cuda.synchronize(dev)
+        return torch.cuda.max_memory_allocated(dev) - held
+
+    splits = {
+        "state_bytes": {"bank": nbytes(*state), "one_tenant": nbytes(*one_state)},
+        "chunk_extra_peak_bytes": {"bank": extra_peak(bank_chunk),
+                                   "one_tenant": extra_peak(one_chunk)},
+        "structure_build_extra_peak_bytes": {
+            "bank": extra_peak(lambda: chunk_structures(Ws, nv, use_kernels=True)),
+            "one_tenant": extra_peak(lambda: chunk_structures(Ws[0], nv[0], use_kernels=True))},
+        "chunk_ms": {"bank": time_ms(bank_chunk, reps=5), "one_tenant": time_ms(one_chunk, reps=5)},
+        "chunk_profile": {"bank": device_busy(bank_chunk), "one_tenant": device_busy(one_chunk)},
+        "per_batch_ms": {"bank": time_ms(bank_tail, reps=3), "one_tenant": time_ms(one_tail, reps=3)},
+        "per_batch_profile": {"bank": device_busy(bank_tail), "one_tenant": device_busy(one_tail)},
+    }
+    global_out = {"seeds": seeds, "edges_per_s_aggregate": T * m / rep.seconds,
+                  "seconds": rep.seconds, "rel_err": errs, "rel_err_limit": limit,
+                  "peak_device_bytes": peak, "launches": launches, "state_sha256": digests,
+                  "one_tenant_equal": True, "tenant0_equals_phase_full": True,
+                  "one_tenant_runs_seconds": one_tenant_runs_s,
+                  "one_tenant_edges_per_s_phase_full": full["edges_per_s"], **splits}
+
+    # (b) local on the broadcast stream
+    params = {"n_vertices": V, "n_pools": FULL["pools"]}
+    lbank = engine(T, seeds, scheme="local", scheme_params=params)
+
+    def drive_local():
+        rep = run_stream(lbank, batches(edges, s))
+        return rep, lbank.estimate()  # the estimate runs segment_sum
+
+    (rep_l, est_l), launches_l, peak_l = run(
+        "local", ("segscan", "multisearch_counts", "segment_sum"), drive_local)
+    if state_sha256(tenant_snapshot(lbank.snapshot(), 0)) != local["digest"] or \
+            not np.array_equal(est_l[0], local["estimate"]):
+        raise AssertionError("tenants_full local: tenant 0 differs from phase local_full")
+    for t in range(T):
+        alone = lbank.scheme.estimate(tenant_state(lbank.state, t), backend="kernel")
+        if not np.array_equal(alone.cpu().numpy(), est_l[t]):
+            raise AssertionError(f"tenants_full local: tenant {t}'s bank estimate differs from "
+                                 "its one-tenant scatter")
+    sum3 = [float(e.sum()) / 3 for e in est_l]
+    rel_l = [abs(x - tau) / tau for x in sum3]
+    if max(rel_l) > REL_ERR_LIMIT:  # the limit of phase local_full
+        raise AssertionError(f"tenants_full local: sum/3 rel.err {rel_l} > {REL_ERR_LIMIT:.0%}")
+    local_out = {"edges_per_s_aggregate": T * m / rep_l.seconds, "seconds": rep_l.seconds,
+                 "sum3": sum3, "rel_err": rel_l, "peak_device_bytes": peak_l,
+                 "launches": launches_l, "tenant0_equals_phase_local_full": True,
+                 "one_tenant_edges_per_s_phase_local_full": local["edges_per_s"]}
+
+    # (c) the deletion burst, broadcast
+    items = dynamic["burst_items"]
+    burst = engine(T, seeds)
+    t0 = time.perf_counter()
+    _, launches_b, peak_b = run("burst", ("multisearch_counts",), lambda: (
+        burst.ingest_signed_stream(iter(items)), burst.sync()))
+    burst_s = time.perf_counter() - t0
+    if launches_b["multisearch_counts"] != 3 + 1 or burst.diag.edges_deleted != s:
+        raise AssertionError(f"tenants_full burst: multisearch_counts launched "
+                             f"{launches_b['multisearch_counts']} times (want 4), "
+                             f"{burst.diag.edges_deleted} edges deleted")
+    if state_sha256(tenant_snapshot(burst.snapshot(), 0)) != dynamic["burst_digest"]:
+        raise AssertionError("tenants_full burst: tenant 0 differs from phase dynamic_full")
+    errs_b, limit_b = rel_errs(burst.estimate(), dynamic["burst_tau"])
+    burst_out = {"seconds": burst_s, "one_tenant_seconds": dynamic["burst_s"],
+                 "signed_edges_per_s_aggregate": T * (m + s) / burst_s, "rel_err": errs_b,
+                 "rel_err_limit": limit_b, "peak_device_bytes": peak_b, "launches": launches_b,
+                 "tenant0_equals_phase_dynamic_full": True}
+    emit({"phase": "tenants_full", "tenants": T, "r": r, "s": s, "K": K, "m": m, "tau": tau,
+          "global": global_out, "local": local_out, "burst": burst_out, "ok": True})
+    launches_all = {k: launches[k] + launches_l[k] + launches_b[k] for k in launches}
+    return {"launches": launches_all, "state": state, "streams": streams, "keys": keys,
+            "local_state": lbank.state, "local_scheme": lbank.scheme}
+
+
+def bank_kernel_rows(dev, tenants: dict) -> list:
+    """Each kernel's bank form at T = 4 and the full shape: equal to its
+    plain version and to T one-tenant calls bit for bit (the tile sort's
+    keys bit-equal to its plain version and its payloads equal under the
+    split contract), with the CUDA launches of one one-tenant call, timed
+    beside T times the one-tenant call's time."""
+    import torch
+
+    from repro_torch.core.bulk import _q1_queries, chunk_structures
+    from repro_torch.core.rank import INF64 as KEY_PAD
+    from repro_torch.core.rank import _next_pow2
+    from repro_torch.kernels import CUDA_LAUNCHES
+    from repro_torch.kernels.bitonic import bitonic_sort_tiles, bitonic_sort_tiles_plain
+    from repro_torch.kernels.fused_ingest import fused_ingest, fused_ingest_plain
+    from repro_torch.kernels.multisearch import multisearch_counts, multisearch_counts_plain
+    from repro_torch.kernels.segment_sum import segment_sum, segment_sum_plain
+    from repro_torch.kernels.segscan import segmented_max_scan, segscan, segscan_plain
+    from repro_torch.primitives.segscan import segment_starts
+    from repro_torch.primitives.sort import pack2
+
+    s, K, r, T = FULL["s"], FULL["K"], FULL["r"], FULL["tenants"]
+    state, keys = tenants["state"], tenants["keys"]
+    Ws = torch.from_numpy(np.stack([e[:K * s].reshape(K, s, 2) for e in tenants["streams"]])).to(dev)
+    nv = torch.full((T, K), s, dtype=torch.int32, device=dev)
+    structs = chunk_structures(Ws, nv, use_kernels=False)
+    rows = []
+
+    def per_call(name, fn) -> int:
+        CUDA_LAUNCHES[name] = 0
+        fn()
+        torch.cuda.synchronize(dev)
+        return CUDA_LAUNCHES[name]
+
+    def row(name, err, bank_fn, one_fns, plain_fn, lib_fn, nb, ops, timer=time_ms,
+            ops_per_s=INT32_OPS_PER_S, **extra):
+        """The bank form's row: one_fns are the T one-tenant calls; tenant
+        0's call is timed as the one-tenant call."""
+        n_bank, n_one = per_call(name, bank_fn), per_call(name, one_fns[0])
+        if n_bank != n_one:
+            raise AssertionError(f"{name} bank form: {n_bank} CUDA launches a call, one "
+                                 f"tenant's call {n_one}")
+        ms, one_ms = timer(bank_fn), timer(one_fns[0])
+        b_ms, b_by = bound(nb, ops, ops_per_s)
+        src_path, replaces = KERNELS[name]
+        rows.append({"name": f"{name} (bank of {T} tenants)", "route": "cuda",
+                     "source": src_path, "replaces": replaces,
+                     "launches": tenants["launches"][name], "max_abs_err": err, "ms": ms,
+                     "plain_ms": time_ms(plain_fn, reps=2, warmup=1), "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None if lib_fn is None else timer(lib_fn),
+                     "tenants": T, "launches_per_call": n_bank,
+                     "one_tenant_launches_per_call": n_one, "one_tenant_ms": one_ms,
+                     "tenants_times_one_tenant_ms": T * one_ms, **extra})
+
+    # fused_ingest: the bank's first chunk over the final bank state, each
+    # tenant from its own first step (a (T,) step0 tensor)
+    st = (state.f1, state.chi, state.f2, state.has_f3)
+    step0 = torch.arange(T, dtype=torch.int64, device=dev) * K
+    args = (*st, *structs, Ws, nv, state.m_seen, keys, step0)
+    got = fused_ingest(*args)
+    want = fused_ingest_plain(*args)
+    ones = []
+    for t in range(T):
+        one_args = (*(x[t] for x in st), *(x[t] for x in structs), Ws[t], nv[t],
+                    state.m_seen[t], keys[t], int(step0[t]))
+        ones.append(lambda a=one_args: fused_ingest(*a))
+        for f, a, b, c in zip(("f1", "chi", "f2", "has_f3"), got, want, ones[t]()):
+            require_equal(f"fused_ingest bank {f}", a, b)
+            require_equal(f"fused_ingest bank {f}, tenant {t} alone", a[t], c)
+    del want
+    tf_ops = 5 * (20 * 3 + 6 * 3)
+    search_ops = 2 * (5 * math.ceil(math.log2(2 * s + 1)) + 2 * math.ceil(math.log2(s + 1)))
+    row("fused_ingest", 0.0, lambda: fused_ingest(*args), ones,
+        lambda: fused_ingest_plain(*args), None, nbytes(*args) + nbytes(*st),
+        T * r * K * (tf_ops + search_ops))
+
+    # bitonic_sort_tiles: the bank's T·K arc tiles of 2^21 in one call
+    tile = _next_pow2(2 * s)
+    Wf = Ws.reshape(T * K, s, 2)
+    kd_p = torch.full((T * K, tile), KEY_PAD, dtype=torch.int64, device=dev)
+    kd_p[:, : 2 * s] = pack2(torch.cat([Wf[:, :, 0], Wf[:, :, 1]], 1),
+                             (s - 1) - torch.arange(s, device=dev, dtype=torch.int32).repeat(2))
+    arc_p = torch.zeros((T * K, tile), dtype=torch.int32, device=dev)
+    arc_p[:, : 2 * s] = torch.arange(2 * s, dtype=torch.int32, device=dev)
+    kf, vf = kd_p.view(-1), arc_p.view(-1)
+    got = bitonic_sort_tiles(kf, vf, tile)
+    check_tile_sort("bitonic bank", kf, vf, tile, got, bitonic_sort_tiles_plain(kf, vf, tile))
+    per = K * tile
+    ones = [lambda t=t: bitonic_sort_tiles(kf[t * per:(t + 1) * per], vf[t * per:(t + 1) * per],
+                                           tile) for t in range(T)]
+    for t in range(T):
+        ak, av = ones[t]()
+        require_equal(f"bitonic bank keys, tenant {t} alone", got[0][t * per:(t + 1) * per], ak)
+        require_equal(f"bitonic bank payloads, tenant {t} alone", got[1][t * per:(t + 1) * per], av)
+
+    def library_tile_sort():
+        sk, order = torch.sort(kd_p, dim=1)
+        return sk, torch.gather(arc_p, 1, order)
+
+    row("bitonic_sort_tiles", 0.0, lambda: bitonic_sort_tiles(kf, vf, tile), ones,
+        lambda: bitonic_sort_tiles_plain(kf, vf, tile), library_tile_sort, 2 * nbytes(kf, vf),
+        2 * kf.numel() * int(math.log2(tile)), shape=f"{T * K} tiles of {tile} (arcs)")
+    del kd_p, arc_p, kf, vf, got
+
+    # segscan: the bank chunk's ranks, a sum over T·K·2s; its max over the
+    # bank's T·K·s tile-sorted edges as a second shape
+    ones_v = torch.ones(T * K * 2 * s, dtype=torch.int32, device=dev)
+    flags = segment_starts(structs[2]).reshape(-1).contiguous()
+    got = segscan(ones_v, flags)
+    require_equal("segscan bank", got, segscan_plain(ones_v, flags))
+    per = K * 2 * s
+    seg_ones = [lambda t=t: segscan(ones_v[t * per:(t + 1) * per], flags[t * per:(t + 1) * per])
+                for t in range(T)]
+    for t in range(T):
+        require_equal(f"segscan bank, tenant {t} alone", got[t * per:(t + 1) * per], seg_ones[t]())
+    epos, estarts = structs[6].reshape(-1).contiguous(), segment_starts(structs[5]).reshape(-1)
+    mx = segmented_max_scan(epos, estarts)
+    per_e = K * s
+    for t in range(T):
+        require_equal(f"segmented_max_scan bank, tenant {t} alone", mx[t * per_e:(t + 1) * per_e],
+                      segmented_max_scan(epos[t * per_e:(t + 1) * per_e],
+                                         estarts[t * per_e:(t + 1) * per_e]))
+    row("segscan", 0.0, lambda: segscan(ones_v, flags), seg_ones,
+        lambda: segscan_plain(ones_v, flags), None, nbytes(ones_v, flags) + nbytes(ones_v),
+        2 * ones_v.numel(), timer=device_ms, shape=f"sum over {ones_v.numel()} (bank ranks)",
+        max_scan_ms=device_ms(lambda: segmented_max_scan(epos, estarts)),
+        max_scan_one_tenant_ms=device_ms(lambda: segmented_max_scan(epos[:per_e],
+                                                                    estarts[:per_e])))
+    del ones_v, flags, got
+
+    # multisearch_counts: Q1 of the bank, each tenant's 4r queries into its
+    # own batch-0 key_desc, a row-strided view of the chunk's structures
+    kd_rows = structs[0][:, 0]
+    f1b = torch.full((T, r), -1, dtype=torch.int32, device=dev)
+    q1 = _q1_queries(s, state.f1[..., 0], state.f1[..., 1], f1b)
+    lt, le = multisearch_counts(kd_rows, q1)
+    wlt, wle = multisearch_counts_plain(kd_rows, q1)
+    require_equal("multisearch bank lt", lt, wlt)
+    require_equal("multisearch bank le", le, wle)
+    ms_ones = [lambda t=t: multisearch_counts(kd_rows[t], q1[t]) for t in range(T)]
+    for t in range(T):
+        a, b = ms_ones[t]()
+        require_equal(f"multisearch bank lt, tenant {t} alone", lt[t], a)
+        require_equal(f"multisearch bank le, tenant {t} alone", le[t], b)
+    kd_dense = kd_rows.contiguous()
+    depth = math.ceil(math.log2(2 * s + 1))
+    row("multisearch_counts", 0.0, lambda: multisearch_counts(kd_rows, q1), ms_ones,
+        lambda: multisearch_counts_plain(kd_rows, q1),
+        lambda: (torch.searchsorted(kd_dense, q1, side="left", out_int32=True),
+                 torch.searchsorted(kd_dense, q1, side="right", out_int32=True)),
+        nbytes(kd_dense, q1) + 2 * 4 * q1.numel(), 2 * 2 * q1.numel() * depth,
+        shape=f"Q1: {T} rows of {q1.shape[1]} queries into {kd_rows.shape[1]} keys",
+        library_call="two torch.searchsorted on the (B, n) rows")
+    del q1, lt, le, wlt, wle, kd_dense
+
+    # segment_sum: the local bank's attribution, 3r rows a tenant into
+    # n_vertices bins each
+    scheme = tenants["local_scheme"]
+    m = scheme.n_vertices
+    vals, ids = scheme.attribution_inputs(tenants["local_state"], 0, r)
+    got = segment_sum(vals, ids, m)
+    require_equal("segment_sum bank", got, segment_sum_plain(vals, ids, m))
+    ss_ones = [lambda t=t: segment_sum(vals[t], ids[t], m) for t in range(T)]
+    for t in range(T):
+        require_equal(f"segment_sum bank, tenant {t} alone", got[t], ss_ones[t]())
+    keep = (ids >= 0) & (ids < m)
+    bins = (ids.long() + m * torch.arange(T, device=dev)[:, None])[keep]
+    vals_in = vals[keep]
+    kept = int(bins.numel())
+    row("segment_sum", 0.0, lambda: segment_sum(vals, ids, m), ss_ones,
+        lambda: segment_sum_plain(vals, ids, m),
+        lambda: torch.zeros((T * m, 1), dtype=torch.float64, device=dev).index_add_(
+            0, bins, vals_in), nbytes(ids) + 8 * kept + T * m * 8, kept, timer=device_ms,
+        ops_per_s=FP64_OPS_PER_S, rows_in_range=kept,
+        library_call="zeros(T * m, d) + index_add_ on the pre-filtered in-range rows, "
+                     "offset by tenant")
+    emit({"phase": "kernels_bank", "tenants": T, "ok": True})
+    return rows
 
 
 def phase_kernels(dev, full: dict, local: dict, dynamic: dict) -> list:
@@ -1571,7 +1944,9 @@ def main() -> int:
     full = phase_full(dev)
     local = phase_local_full(dev, full)
     dynamic = phase_dynamic_full(dev, full)
+    tenants = phase_tenants_full(dev, full, local, dynamic)
     rows = phase_kernels(dev, full, local, dynamic)
+    rows += bank_kernel_rows(dev, tenants)
     phase_cli()
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})

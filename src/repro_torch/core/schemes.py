@@ -38,6 +38,11 @@ drawing no randomness and leaving ``m_seen`` the insertion count, and
 ``expire`` aliases it (an expired edge is a deletion authored by the window
 clock). ``local`` inherits both: its attribution happens at estimate time
 from the patched sample.
+
+Banks: every stage takes a bank of tenants (a leading tenant axis on the
+state, the batches and the key; ``core.bulk``), and ``estimate`` then
+answers per tenant, (T,) or (T, n_vertices), the reference's
+``vmap(scheme.estimate)``.
 """
 from __future__ import annotations
 
@@ -48,6 +53,7 @@ import torch
 
 from repro_torch import rng
 from repro_torch.core.bulk import (
+    batch_keys,
     bulk_delete_chunk,
     bulk_delete_update,
     bulk_update_all,
@@ -81,20 +87,21 @@ class EstimatorScheme:
 
     name: str = "?"
 
-    def init_state(self, r: int, device="cpu") -> EstimatorState:
-        return init_state(r, device)
+    def init_state(self, r: int, device="cpu", n_tenants=None) -> EstimatorState:
+        return init_state(r, device, n_tenants)
 
     def bulk_update(self, state, W, n_valid, key, *, search: str = "auto"):
         return bulk_update_all(state, W, n_valid, key, search)
 
-    def chunk_update(self, state, Ws, n_valids, key, step0: int = 0, *,
+    def chunk_update(self, state, Ws, n_valids, key, step0=0, *,
                      backend: str = "auto", search: str = "auto"):
         """K stacked batches: batch i draws from ``fold_in(key, step0 + i)``,
         so this equals K sequential ``bulk_update`` calls (the reference's
         ``lax.scan``). ``backend`` is unused here."""
-        for i in range(Ws.shape[0]):
-            state = self.bulk_update(state, Ws[i], n_valids[i],
-                                     rng.fold_in(key, step0 + i), search=search)
+        keys = batch_keys(key, step0, Ws.shape[-3])
+        for i in range(Ws.shape[-3]):
+            state = self.bulk_update(state, Ws[..., i, :, :], n_valids[..., i], keys[..., i, :],
+                                     search=search)
         return state
 
     # -- turnstile deletions / window expiry --------------------------------
@@ -137,7 +144,7 @@ class GlobalScheme(EstimatorScheme):
 
     name = "global"
 
-    def chunk_update(self, state, Ws, n_valids, key, step0: int = 0, *,
+    def chunk_update(self, state, Ws, n_valids, key, step0=0, *,
                      backend: str = "auto", search: str = "auto"):
         return bulk_update_chunk(state, Ws, n_valids, key, step0,
                                  backend=backend, search=search)
@@ -155,7 +162,7 @@ class NaiveScheme(GlobalScheme):
     def bulk_update(self, state, W, n_valid, key, *, search: str = "auto"):
         return naive_parallel_update(state, W, n_valid, key)
 
-    def chunk_update(self, state, Ws, n_valids, key, step0: int = 0, *,
+    def chunk_update(self, state, Ws, n_valids, key, step0=0, *,
                      backend: str = "auto", search: str = "auto"):
         return EstimatorScheme.chunk_update(self, state, Ws, n_valids, key, step0,
                                             backend=backend, search=search)
@@ -192,27 +199,30 @@ class LocalScheme(EstimatorScheme):
         function of the global index): values (3 r_local, 1) float64, each
         closed sampled triangle's coarse estimate once per vertex its pool
         owns, else 0; ids (3 r_local,) int32, that vertex, else
-        ``n_vertices`` (out of range: dropped)."""
+        ``n_vertices`` (out of range: dropped). A bank's are (T, 3 r_local,
+        1) and (T, 3 r_local)."""
         r_pool = r // self.n_pools
         x = coarse_estimates(state)
-        u, v = state.f1[:, 0], state.f1[:, 1]
-        a, b = state.f2[:, 0], state.f2[:, 1]
+        u, v = state.f1[..., 0], state.f1[..., 1]
+        a, b = state.f2[..., 0], state.f2[..., 1]
         # the sampled triangle's third vertex: f2's endpoint not shared with f1
         o2 = torch.where((a == u) | (a == v), b, a)
-        tri = torch.stack([u, v, o2])  # (3, r_local)
-        r_local = state.chi.shape[0]
+        tri = torch.stack([u, v, o2], dim=-2)  # (.., 3, r_local)
+        r_local = state.chi.shape[-1]
         pool = ((offset + torch.arange(r_local, dtype=torch.int32, device=x.device))
                 // r_pool).to(torch.int32)
         closed = state.has_f3 & (u >= 0) & (a >= 0)
-        take = (closed[None, :] & (tri >= 0) & (tri < self.n_vertices)
-                & (vertex_pool(tri, self.n_pools) == pool[None, :]))
+        take = (closed[..., None, :] & (tri >= 0) & (tri < self.n_vertices)
+                & (vertex_pool(tri, self.n_pools) == pool))
         vert = torch.where(take, tri, torch.full_like(tri, self.n_vertices))
-        vals = torch.where(take, x[None, :], torch.zeros_like(x)[None, :])
-        return vals.reshape(-1, 1), vert.reshape(-1).to(torch.int32)
+        vals = torch.where(take, x[..., None, :], torch.zeros_like(x)[..., None, :])
+        lead = tuple(x.shape[:-1])
+        return vals.reshape(*lead, -1, 1), vert.reshape(*lead, -1).to(torch.int32)
 
     def _attribution_sums(self, state, offset: int, r: int, *,
                           backend: str = "auto") -> Tensor:
-        """(n_vertices,) float64 pool-local attribution sums. ``backend``
+        """(n_vertices,) float64 pool-local attribution sums ((T,
+        n_vertices) for a bank, one scatter for all its tenants). ``backend``
         resolving to "kernel" runs the scatter in the ``segment_sum`` kernel;
         otherwise it is a plain ``index_add_``. Both are exact: the values
         are integer-valued float64 below 2**53."""
@@ -221,10 +231,10 @@ class LocalScheme(EstimatorScheme):
         vals, ids = self.attribution_inputs(state, offset, r)
         scatter = (segment_sum if resolve_ingest_backend(backend, vals.device) == "kernel"
                    else segment_sum_plain)
-        return scatter(vals, ids, self.n_vertices)[:, 0]
+        return scatter(vals, ids, self.n_vertices)[..., 0]
 
     def estimate(self, state, groups: int = 9, *, backend: str = "auto") -> Tensor:
-        r = state.chi.shape[0]
+        r = state.chi.shape[-1]
         self.validate(r)
         # vertex v's pool holds exactly r / n_pools estimators
         return self._attribution_sums(state, 0, r, backend=backend) / (r // self.n_pools)
@@ -264,31 +274,38 @@ def resolve_scheme(name, params: Optional[dict | tuple] = None) -> EstimatorSche
 def _edge_update(state: EstimatorState, edge: Tensor, u1: Tensor, u2: Tensor) -> EstimatorState:
     """One stream arrival against all estimators; ``u1``/``u2`` are the
     arrival's two (r,) float64 uniform draws, compared with float32
-    thresholds as in the reference (x64 makes its draws float64)."""
-    u, v = edge[0], edge[1]
+    thresholds as in the reference (x64 makes its draws float64). A bank
+    takes (T, 2) edges, (T, r) draws."""
+    u, v = edge[..., 0:1], edge[..., 1:2]  # columns against the (.., r) lanes
     m_new = state.m_seen + 1
 
-    take1 = u1 < 1.0 / m_new.to(torch.float32)
-    f1 = torch.where(take1[:, None], edge[None, :], state.f1)
+    take1 = u1 < 1.0 / m_new.to(torch.float32)[..., None]
+    f1 = torch.where(take1[..., None], edge[..., None, :], state.f1)
     chi = torch.where(take1, torch.zeros_like(state.chi), state.chi)
-    f2 = torch.where(take1[:, None], torch.full_like(state.f2, -1), state.f2)
+    f2 = torch.where(take1[..., None], torch.full_like(state.f2, -1), state.f2)
     has_f3 = state.has_f3 & ~take1
 
-    live = ~take1 & (f1[:, 0] >= 0)
-    adj = live & ((f1[:, 0] == u) | (f1[:, 0] == v) | (f1[:, 1] == u) | (f1[:, 1] == v))
+    live = ~take1 & (f1[..., 0] >= 0)
+    adj = live & ((f1[..., 0] == u) | (f1[..., 0] == v) | (f1[..., 1] == u) | (f1[..., 1] == v))
     chi = chi + adj.to(torch.int32)
     take2 = adj & (u2 < 1.0 / torch.clamp(chi, min=1).to(torch.float32))
-    ce = torch.stack([torch.minimum(u, v), torch.maximum(u, v)])
-    f2 = torch.where(take2[:, None], ce[None, :], f2)
+    ce = torch.stack([torch.minimum(u, v), torch.maximum(u, v)], dim=-1)  # (.., 1, 2)
+    f2 = torch.where(take2[..., None], ce, f2)
     has_f3 = has_f3 & ~take2
 
-    chk = adj & ~take2 & (f2[:, 0] >= 0)
-    a, b = f2[:, 0], f2[:, 1]
-    o1 = torch.where((f1[:, 0] == a) | (f1[:, 0] == b), f1[:, 1], f1[:, 0])
-    o2 = torch.where((a == f1[:, 0]) | (a == f1[:, 1]), b, a)
-    closes = (torch.minimum(o1, o2) == ce[0]) & (torch.maximum(o1, o2) == ce[1])
+    chk = adj & ~take2 & (f2[..., 0] >= 0)
+    a, b = f2[..., 0], f2[..., 1]
+    o1 = torch.where((f1[..., 0] == a) | (f1[..., 0] == b), f1[..., 1], f1[..., 0])
+    o2 = torch.where((a == f1[..., 0]) | (a == f1[..., 1]), b, a)
+    closes = (torch.minimum(o1, o2) == ce[..., 0]) & (torch.maximum(o1, o2) == ce[..., 1])
     has_f3 = has_f3 | (chk & closes)
     return EstimatorState(f1, chi, f2, has_f3, m_new)
+
+
+def _keep_where(skip: Tensor, old: EstimatorState, new: EstimatorState) -> EstimatorState:
+    """Per tenant, the old state where ``skip`` (T,) is set, else the new."""
+    return EstimatorState(*(torch.where(skip.view(-1, *([1] * (o.dim() - 1))), o, n)
+                            for o, n in zip(old, new)))
 
 
 def naive_parallel_update(state: EstimatorState, W: Tensor, n_valid, key: Tensor) -> EstimatorState:
@@ -296,11 +313,16 @@ def naive_parallel_update(state: EstimatorState, W: Tensor, n_valid, key: Tensor
     Edge i draws from ``split(split(key, s)[i])``, two float64
     ``uniform(., (r,))``;
     rows at or past ``n_valid`` leave the state as it is, so the loop stops
-    there. All s arrivals' draws are made up front in one batched call."""
-    r, s = state.r, W.shape[0]
-    k = rng.split(rng.split(key, s))  # (s, 2, 2): each edge's (k1, k2)
-    u1 = rng.uniform64(k[:, 0], (r,))  # (s, r)
-    u2 = rng.uniform64(k[:, 1], (r,))
-    for i in range(min(int(n_valid), s)):
-        state = _edge_update(state, W[i], u1[i], u2[i])
+    there (a bank's loop stops at its largest count, and each tenant keeps
+    its state at rows past its own). All s arrivals' draws are made up front
+    in one batched call."""
+    r, s = state.r, W.shape[-2]
+    k = rng.split(rng.split(key, s))  # (.., s, 2, 2): each edge's (k1, k2)
+    u1 = rng.uniform64(k[..., 0, :], (r,))  # (.., s, r)
+    u2 = rng.uniform64(k[..., 1, :], (r,))
+    per_tenant = isinstance(n_valid, torch.Tensor) and n_valid.dim() > 0
+    n = int(n_valid.max()) if per_tenant else int(n_valid)
+    for i in range(min(n, s)):
+        new = _edge_update(state, W[..., i, :], u1[..., i, :], u2[..., i, :])
+        state = _keep_where(i >= n_valid, state, new) if per_tenant else new
     return state

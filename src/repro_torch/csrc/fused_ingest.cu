@@ -41,6 +41,20 @@
 //     (about 88 MB at r = 2^21, 26 us at 3.35 TB/s); launch k > 0 updates
 //     the output in place.
 //
+// A bank of T tenants (the reference runs its kernel under jax.vmap over
+// tenants): the persistent grid walks the (tenant, estimator tile) pairs
+// tenant-major. A CTA working on tenant t's tile reads its state rows, its
+// batch's structures and edges, its counts, its key and its first step
+// (step0s[t], on the device), and nothing of another tenant's; it derives
+// the batch's keys and loads the samples again only where its tenant
+// changes. Every CTA advances at about the same pace, so the grid works on
+// about one tenant at a time and the batch-major L2 argument below holds
+// for a bank too. (A grid with a tenant axis ran all four tenants at once,
+// four batches' structures competing for the L2, and took 1.58x four
+// one-tenant calls at the full shape on an NVIDIA H100 80GB HBM3 at 700 W,
+// chip_smoke.py.) The batch loop stays one launch a batch for every T;
+// T = 1 is the one-tenant call, tile for tile.
+//
 // Per batch and estimator: step-1 replace; Q1 rank/degree as two pairs of
 // lower bounds over key_desc; chi update; coin < chi+ / max(chi, 1) in IEEE
 // float (the division is a correctly rounded '/', never __fdividef, and the
@@ -115,30 +129,78 @@ __device__ Batch batch_keys(const long long* key, long long step, const int* n_v
   return b;
 }
 
-// Batch k of the chunk for every estimator. f1 .. has_f3 may alias the
-// outputs (launches k > 0 update in place).
+// The state's tenant rows, and batch k's structures and edges, of one
+// tenant of the bank (every array of Bank is tenant 0's).
+struct Tenant {
+  const int *f1, *chi, *f2;
+  const unsigned char* has_f3;
+  int *f1_out, *chi_out, *f2_out;
+  unsigned char* has_f3_out;
+  const long long *kd, *kr, *ek;
+  const int *src, *dst, *pos, *epos, *W;
+};
+
+struct Bank {
+  Tenant zero;  // tenant 0, batch k
+  const int* n_valids;  // (T, K)
+  const long long *m_seen, *key, *step0s;  // (T,), (T, 2), (T,)
+  int T, K;
+};
+
+__device__ __forceinline__ Tenant tenant_rows(const Bank& bank, long long t, int r, int s) {
+  const long long rows = t * r, arcs = t * bank.K * 2LL * s, edges = t * bank.K * (long long)s;
+  const Tenant& z = bank.zero;
+  return {z.f1 + 2 * rows, z.chi + rows, z.f2 + 2 * rows, z.has_f3 + rows,
+          z.f1_out + 2 * rows, z.chi_out + rows, z.f2_out + 2 * rows, z.has_f3_out + rows,
+          z.kd + arcs, z.kr + arcs, z.ek + edges, z.src + arcs, z.dst + arcs, z.pos + arcs,
+          z.epos + edges, z.W + 2 * edges};
+}
+
+// Batch k of the chunk for every estimator of every tenant. The state
+// inputs may alias the outputs (launches k > 0 update in place).
 __global__ void __launch_bounds__(THREADS, MIN_CTAS)
-fused_batch_kernel(const int* f1, const int* chi, const int* f2, const unsigned char* has_f3,
-                   int* f1_out, int* chi_out, int* f2_out, unsigned char* has_f3_out,
-                   const long long* __restrict__ kd, const long long* __restrict__ kr,
-                   const int* __restrict__ src, const int* __restrict__ dst,
-                   const int* __restrict__ pos, const long long* __restrict__ ek,
-                   const int* __restrict__ epos, const int* __restrict__ W,
-                   const int* __restrict__ n_valids, const long long* __restrict__ m_seen,
-                   const long long* __restrict__ key, long long step0, int k, int r, int s) {
+fused_batch_kernel(const Bank bank, int k, int r, int s) {
   extern __shared__ __align__(16) long long smem[];
   __shared__ Batch shared_batch;
   const int s2 = 2 * s;
-  if (threadIdx.x == 0) shared_batch = batch_keys(key, step0 + k, n_valids, m_seen, k);
-  const search::Sample sd = search::load_sample<THREADS>(smem, SAMPLE, kd, s2);
-  const search::Sample sr = search::load_sample<THREADS>(smem + SAMPLE, SAMPLE, kr, s2);
-  const search::Sample se = search::load_sample<THREADS>(smem + 2 * SAMPLE, SAMPLE, ek, s);
-  __syncthreads();
   const Batch& bt = shared_batch;
-
   const long long per_cta = (long long)THREADS * EST;
-  for (long long base = (long long)blockIdx.x * per_cta; base < r;
-       base += (long long)gridDim.x * per_cta) {
+  const long long tiles = (r + per_cta - 1) / per_cta;  // a tenant's estimator tiles
+  long long tenant = -1;  // the tenant whose keys and samples are loaded
+  search::Sample sd{}, sr{}, se{};
+  for (long long w = blockIdx.x; w < bank.T * tiles; w += gridDim.x) {
+    const long long t = w / tiles;
+    // the tenant's arrays, from the parameters again each tile rather than
+    // held in registers across tiles
+    const Tenant tr = tenant_rows(bank, t, r, s);
+    if (t != tenant) {  // uniform across the CTA
+      tenant = t;
+      __syncthreads();  // every thread is done with the old samples
+      if (threadIdx.x == 0)
+        shared_batch = batch_keys(bank.key + 2 * t, bank.step0s[t] + k,
+                                  bank.n_valids + t * bank.K, bank.m_seen + t, k);
+      sd = search::load_sample<THREADS>(smem, SAMPLE, tr.kd, s2);
+      sr = search::load_sample<THREADS>(smem + SAMPLE, SAMPLE, tr.kr, s2);
+      se = search::load_sample<THREADS>(smem + 2 * SAMPLE, SAMPLE, tr.ek, s);
+      __syncthreads();
+    }
+    const long long base = (w - t * tiles) * per_cta;
+    const int* f1 = tr.f1;  // not restrict: launches k > 0 read the outputs
+    const int* chi = tr.chi;
+    const int* f2 = tr.f2;
+    const unsigned char* has_f3 = tr.has_f3;
+    int* f1_out = tr.f1_out;
+    int* chi_out = tr.chi_out;
+    int* f2_out = tr.f2_out;
+    unsigned char* has_f3_out = tr.has_f3_out;
+    const long long* __restrict__ kd = tr.kd;
+    const long long* __restrict__ kr = tr.kr;
+    const long long* __restrict__ ek = tr.ek;
+    const int* __restrict__ src = tr.src;
+    const int* __restrict__ dst = tr.dst;
+    const int* __restrict__ pos = tr.pos;
+    const int* __restrict__ epos = tr.epos;
+    const int* __restrict__ W = tr.W;
     int i[EST], u[EST], v[EST], c[EST], a[EST], b[EST], f1b[EST];
     bool live[EST], h[EST];
     float coin[EST];
@@ -265,35 +327,41 @@ std::atomic<long long> resident[search::MAX_DEVICES];
 
 }  // namespace
 
-// One launch per batch; *launches is the number of kernels queued (K, or
-// fewer on an error). r, K and s are at least 1.
+// One launch per batch for all T tenants; *launches is the number of
+// kernels queued (K, or fewer on an error). T, r, K and s are at least 1.
+// step0s holds T int64 first steps on the device: tenant t's batch k draws
+// from fold_in(key[t], step0s[t] + k).
 extern "C" int fused_ingest(const void* f1, const void* chi, const void* f2,
                             const void* has_f3, const void* key_desc,
                             const void* key_rank, const void* src,
                             const void* dst, const void* pos, const void* ekey,
                             const void* epos, const void* Ws, const void* n_valids,
                             const void* m_seen, const void* key, void* f1_out,
-                            void* chi_out, void* f2_out, void* has_f3_out, long long r,
-                            long long n_batches, long long s, long long step0, void* stream,
-                            int* launches) {
+                            void* chi_out, void* f2_out, void* has_f3_out,
+                            const void* step0s, long long tenants, long long r,
+                            long long n_batches, long long s, void* stream, int* launches) {
   *launches = 0;
   long long ctas = 0;
   cudaError_t err = search::resident_ctas(fused_batch_kernel, THREADS, SMEM, resident, &ctas);
   if (err != cudaSuccess) return (int)err;
-  const long long tiles = (r + (long long)THREADS * EST - 1) / ((long long)THREADS * EST);
+  const long long tiles =
+      tenants * ((r + (long long)THREADS * EST - 1) / ((long long)THREADS * EST));
   const unsigned blocks = (unsigned)(tiles < ctas ? tiles : ctas);
   for (long long k = 0; k < n_batches; ++k) {
     const bool first = k == 0;
-    fused_batch_kernel<<<blocks, THREADS, SMEM, (cudaStream_t)stream>>>(
+    const Tenant zero{
         (const int*)(first ? f1 : f1_out), (const int*)(first ? chi : chi_out),
         (const int*)(first ? f2 : f2_out),
         (const unsigned char*)(first ? has_f3 : has_f3_out), (int*)f1_out, (int*)chi_out,
         (int*)f2_out, (unsigned char*)has_f3_out, (const long long*)key_desc + k * 2 * s,
-        (const long long*)key_rank + k * 2 * s, (const int*)src + k * 2 * s,
-        (const int*)dst + k * 2 * s, (const int*)pos + k * 2 * s,
-        (const long long*)ekey + k * s, (const int*)epos + k * s, (const int*)Ws + k * 2 * s,
-        (const int*)n_valids, (const long long*)m_seen, (const long long*)key, step0, (int)k,
-        (int)r, (int)s);
+        (const long long*)key_rank + k * 2 * s, (const long long*)ekey + k * s,
+        (const int*)src + k * 2 * s, (const int*)dst + k * 2 * s, (const int*)pos + k * 2 * s,
+        (const int*)epos + k * s, (const int*)Ws + k * 2 * s};
+    const Bank bank{zero, (const int*)n_valids, (const long long*)m_seen,
+                    (const long long*)key, (const long long*)step0s, (int)tenants,
+                    (int)n_batches};
+    fused_batch_kernel<<<blocks, THREADS, SMEM, (cudaStream_t)stream>>>(bank, (int)k, (int)r,
+                                                                        (int)s);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     ++*launches;

@@ -35,6 +35,18 @@
 // takes 21 L2 probes per bound. The L2 latency of those chains is what the
 // kernel waits on.
 //
+// Rows: the keys and queries may be B rows of one bank (a tenant each), row
+// b's n keys at keys + b * key_stride and its q queries at queries + b *
+// query_stride; the counts are written densely, (B, q). The persistent grid
+// walks the (row, query tile) pairs row-major: each CTA loads its sample
+// from the row of the tile it works on (again only when that row changes),
+// and since every CTA advances at about the same pace, the grid searches
+// about one row at a time, so one row's keys, not all B rows', compete for
+// the L2. (A grid with a row axis searched all four rows of the bank at
+// once and took 1.37x four one-row calls at Q1's full shape on an NVIDIA
+// H100 80GB HBM3 at 700 W, chip_smoke.py.) B = 1 is the one-row search,
+// tile for tile.
+//
 // n == 0 and q == 0 are answered by the wrapper without a launch.
 
 #include <cuda_runtime.h>
@@ -51,32 +63,44 @@ constexpr int QUERIES = 2;
 constexpr size_t SMEM = SAMPLE * sizeof(long long);
 
 __global__ void __launch_bounds__(THREADS)
-multisearch_counts_kernel(const long long* __restrict__ keys, long long n,
-                          const long long* __restrict__ queries, long long q,
-                          int* __restrict__ lt, int* __restrict__ le) {
+multisearch_counts_kernel(const long long* __restrict__ keys, long long rows, long long n,
+                          long long key_stride, const long long* __restrict__ queries,
+                          long long q, long long query_stride, int* __restrict__ lt,
+                          int* __restrict__ le) {
   extern __shared__ __align__(16) long long sample[];
-  const search::Sample smp = search::load_sample<THREADS>(sample, SAMPLE, keys, n);
-  __syncthreads();
   const long long per_cta = (long long)THREADS * QUERIES;
+  const long long tiles = (q + per_cta - 1) / per_cta;  // a row's query tiles
   bool all[QUERIES];
 #pragma unroll
   for (int j = 0; j < QUERIES; ++j) all[j] = true;
-  for (long long base = (long long)blockIdx.x * per_cta; base < q;
-       base += (long long)gridDim.x * per_cta) {
+  long long row = -1;  // the row whose sample is loaded
+  search::Sample smp{};
+  const long long* rkeys = keys;
+  for (long long w = blockIdx.x; w < rows * tiles; w += gridDim.x) {
+    const long long b = w / tiles;
+    if (b != row) {  // uniform across the CTA
+      row = b;
+      rkeys = keys + row * key_stride;
+      __syncthreads();  // every thread is done with the old sample
+      smp = search::load_sample<THREADS>(sample, SAMPLE, rkeys, n);
+      __syncthreads();
+    }
+    const long long base = (w - row * tiles) * per_cta;
+    const long long* rq = queries + row * query_stride;
     long long x[QUERIES];
 #pragma unroll
     for (int j = 0; j < QUERIES; ++j) {
       const long long i = base + threadIdx.x + (long long)j * THREADS;
-      x[j] = i < q ? queries[i] : 0;
+      x[j] = i < q ? rq[i] : 0;
     }
     int c_lt[QUERIES], c_le[QUERIES];
-    search::two_level<QUERIES, true>(smp, keys, n, x, x, all, c_lt, c_le);
+    search::two_level<QUERIES, true>(smp, rkeys, n, x, x, all, c_lt, c_le);
 #pragma unroll
     for (int j = 0; j < QUERIES; ++j) {
       const long long i = base + threadIdx.x + (long long)j * THREADS;
       if (i < q) {
-        lt[i] = c_lt[j];
-        le[i] = c_le[j];
+        lt[row * q + i] = c_lt[j];
+        le[row * q + i] = c_le[j];
       }
     }
   }
@@ -87,18 +111,21 @@ std::atomic<long long> resident[search::MAX_DEVICES];
 }  // namespace
 
 // *launches is the number of kernels queued: 1, or 0 on an error.
-extern "C" int multisearch_counts(const void* keys, long long n,
-                                  const void* queries, long long q, void* lt,
-                                  void* le, void* stream, int* launches) {
+extern "C" int multisearch_counts(const void* keys, long long rows, long long n,
+                                  long long key_stride, const void* queries, long long q,
+                                  long long query_stride, void* lt, void* le, void* stream,
+                                  int* launches) {
   *launches = 0;
   long long ctas = 0;
   cudaError_t err =
       search::resident_ctas(multisearch_counts_kernel, THREADS, SMEM, resident, &ctas);
   if (err != cudaSuccess) return (int)err;
-  const long long tiles = (q + (long long)THREADS * QUERIES - 1) / ((long long)THREADS * QUERIES);
+  const long long tiles =
+      rows * ((q + (long long)THREADS * QUERIES - 1) / ((long long)THREADS * QUERIES));
   const unsigned blocks = (unsigned)(tiles < ctas ? tiles : ctas);
   multisearch_counts_kernel<<<blocks, THREADS, SMEM, (cudaStream_t)stream>>>(
-      (const long long*)keys, n, (const long long*)queries, q, (int*)lt, (int*)le);
+      (const long long*)keys, rows, n, key_stride, (const long long*)queries, q, query_stride,
+      (int*)lt, (int*)le);
   err = cudaGetLastError();
   *launches = err == cudaSuccess;
   return (int)err;

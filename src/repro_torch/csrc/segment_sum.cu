@@ -21,7 +21,14 @@
 //      thread in flight at once (one at a time, their latencies would
 //      queue up: 15 of them a thread at full size).
 // At full size the 33.5 MB output fits the 50 MB L2, so the atomics land on
-// lines the fill just wrote. d = 1 has its own path; no path divides.
+// lines the fill just wrote. d = 1 has its own path; one tenant divides nothing.
+//
+// A bank of T tenants (the reference runs its kernel under jax.vmap over
+// tenants): values (T, n, d) and ids (T, n) flattened to T * n rows, out
+// (T, m, d). Row i belongs to tenant i / n, and its id is checked against
+// [0, m) before it is offset into that tenant's bins, so an out-of-range id
+// is dropped within its tenant and never lands in a neighbour's bins. The
+// division is skipped for T = 1, the one-tenant call. Still one launch.
 //
 // Contract: the order of the atomic adds is not fixed, so the result is exact
 // (and equal to any other summation order) only where every value and every
@@ -52,15 +59,21 @@ constexpr int BATCH = 4;  // words (or ids) a thread reads at once after the bar
 constexpr int MIN_CTAS = 4;  // the launch bound's CTAs an SM
 static_assert(BATCH <= HELD, "the batches after the barrier reuse the held registers");
 
+// The bank's shape: tenants, and the rows of each (n = tenants * per).
+struct Bank {
+  long long tenants, per;
+};
+
 template <bool D1>
 __device__ __forceinline__ void add_row(const double* __restrict__ values, long long row,
-                                        int seg, int d, int m, double* out) {
+                                        int seg, int d, int m, const Bank& bank, double* out) {
   if (seg < 0 || seg >= m) return;
+  const long long bin = (bank.tenants == 1 ? 0 : (row / bank.per) * m) + seg;
   if (D1) {
-    atomicAdd(out + seg, values[row]);
+    atomicAdd(out + bin, values[row]);
   } else {
     const double* v = values + row * d;
-    double* o = out + (long long)seg * d;
+    double* o = out + bin * d;
     for (int c = 0; c < d; ++c) atomicAdd(o + c, v[c]);
   }
 }
@@ -70,7 +83,7 @@ __device__ __forceinline__ void add_row(const double* __restrict__ values, long 
 template <bool D1>
 __global__ void __launch_bounds__(THREADS, MIN_CTAS)
     segment_sum_kernel(const double* __restrict__ values, const int* __restrict__ ids,
-                       long long n, int d, int m, double* __restrict__ out,
+                       long long n, int d, int m, Bank bank, double* __restrict__ out,
                        long long words, long long held_words) {
   const long long threads = (long long)gridDim.x * THREADS;
   const long long me = (long long)blockIdx.x * THREADS + threadIdx.x;
@@ -84,7 +97,7 @@ __global__ void __launch_bounds__(THREADS, MIN_CTAS)
     const long long q = j * threads + me;
     w[j] = q < held_words ? __ldg(ids4 + q) : none;
   }
-  const long long cells = (long long)m * d;
+  const long long cells = bank.tenants * m * d;
   double2* out2 = reinterpret_cast<double2*>(out);
   for (long long i = me; i < cells / 2; i += threads) out2[i] = make_double2(0.0, 0.0);
   if (me == 0 && (cells & 1)) out[cells - 1] = 0.0;
@@ -94,10 +107,10 @@ __global__ void __launch_bounds__(THREADS, MIN_CTAS)
 #pragma unroll
   for (int j = 0; j < HELD; ++j) {
     const long long row = 4 * (j * threads + me);
-    add_row<D1>(values, row, w[j].x, d, m, out);
-    add_row<D1>(values, row + 1, w[j].y, d, m, out);
-    add_row<D1>(values, row + 2, w[j].z, d, m, out);
-    add_row<D1>(values, row + 3, w[j].w, d, m, out);
+    add_row<D1>(values, row, w[j].x, d, m, bank, out);
+    add_row<D1>(values, row + 1, w[j].y, d, m, bank, out);
+    add_row<D1>(values, row + 2, w[j].z, d, m, bank, out);
+    add_row<D1>(values, row + 3, w[j].w, d, m, bank, out);
   }
   for (long long q0 = held_words + me; q0 < words; q0 += BATCH * threads) {
 #pragma unroll
@@ -108,10 +121,10 @@ __global__ void __launch_bounds__(THREADS, MIN_CTAS)
 #pragma unroll
     for (int k = 0; k < BATCH; ++k) {
       const long long row = 4 * (q0 + k * threads);
-      add_row<D1>(values, row, w[k].x, d, m, out);
-      add_row<D1>(values, row + 1, w[k].y, d, m, out);
-      add_row<D1>(values, row + 2, w[k].z, d, m, out);
-      add_row<D1>(values, row + 3, w[k].w, d, m, out);
+      add_row<D1>(values, row, w[k].x, d, m, bank, out);
+      add_row<D1>(values, row + 1, w[k].y, d, m, bank, out);
+      add_row<D1>(values, row + 2, w[k].z, d, m, bank, out);
+      add_row<D1>(values, row + 3, w[k].w, d, m, bank, out);
     }
   }
   // the rows past the last whole word (all of them where ids is not 16-byte
@@ -121,17 +134,19 @@ __global__ void __launch_bounds__(THREADS, MIN_CTAS)
 #pragma unroll
     for (int k = 0; k < BATCH; ++k) id[k] = r0 + k * threads < n ? __ldg(ids + r0 + k * threads) : -1;
 #pragma unroll
-    for (int k = 0; k < BATCH; ++k) add_row<D1>(values, r0 + k * threads, id[k], d, m, out);
+    for (int k = 0; k < BATCH; ++k) add_row<D1>(values, r0 + k * threads, id[k], d, m, bank, out);
   }
 }
 
 }  // namespace
 
-// out must be 16-byte aligned (the wrapper allocates it), for the fill's
-// 16-byte stores. *launches: the kernels queued (1).
-extern "C" int segment_sum(const void* values, const void* ids, long long n,
-                           long long d, long long m, void* out, void* stream,
+// values (tenants, per, d) and ids (tenants, per); out (tenants, m, d) must
+// be 16-byte aligned (the wrapper allocates it), for the fill's 16-byte
+// stores. *launches: the kernels queued (1).
+extern "C" int segment_sum(const void* values, const void* ids, long long tenants,
+                           long long per, long long d, long long m, void* out, void* stream,
                            int* launches) {
+  const long long n = tenants * per;
   *launches = 0;
   cudaStream_t s = (cudaStream_t)stream;
   const bool d1 = d == 1;
@@ -156,7 +171,7 @@ extern "C" int segment_sum(const void* values, const void* ids, long long n,
   // most what can be resident at once (a cooperative launch's limit)
   const long long words = ((uintptr_t)ids & 15u) == 0u ? n / 4 : 0;
   const long long hold_threads = (words + HELD - 1) / HELD;
-  const long long fill_threads = (m * d + 1) / 2;
+  const long long fill_threads = (tenants * m * d + 1) / 2;
   long long blocks = (std::max(hold_threads, fill_threads) + THREADS - 1) / THREADS;
   const long long most = resident[d1][dev];
   if (blocks > most) blocks = most;
@@ -167,9 +182,10 @@ extern "C" int segment_sum(const void* values, const void* ids, long long n,
   const int* i = (const int*)ids;
   int di = (int)d, mi = (int)m;
   double* o = (double*)out;
-  long long w = words;
-  void* args[] = {(void*)&v, (void*)&i, (void*)&n, (void*)&di, (void*)&mi, (void*)&o,
-                  (void*)&w, (void*)&held_words};
+  long long w = words, rows = n;
+  Bank bank{tenants, per};
+  void* args[] = {(void*)&v, (void*)&i, (void*)&rows, (void*)&di, (void*)&mi, (void*)&bank,
+                  (void*)&o, (void*)&w, (void*)&held_words};
   err = cudaLaunchCooperativeKernel(kernel, dim3((unsigned)blocks), dim3(THREADS), args, 0, s);
   if (err == cudaSuccess) err = cudaGetLastError();
   *launches = err == cudaSuccess;

@@ -1,6 +1,7 @@
 """TriangleCountEngine on the ``single`` plan (``repro.engine.engine``).
 
-A long-lived streaming triangle counter for one tenant's edge stream:
+A long-lived streaming triangle counter for a bank of ``n_tenants`` edge
+streams (one by default):
 
   * ``ingest(W)`` folds one batch into the estimators;
   * ``stage_chunk`` / ``ingest_chunk`` fold K batches in one update, with
@@ -11,9 +12,18 @@ A long-lived streaming triangle counter for one tenant's edge stream:
     format, so a snapshot from either engine restores into the other
     (``repro_torch.interop``).
 
-RNG contract: batch i draws from ``fold_in(PRNGKey(seed), i)``; nothing else
-carries random state, so chunked, per-batch and restored runs are
-bit-identical to each other and to the JAX reference.
+RNG contract: batch i of tenant t draws from ``fold_in(PRNGKey(seeds[t]),
+i)``; nothing else carries random state, so chunked, per-batch and restored
+runs are bit-identical to each other and to the JAX reference, and tenant t
+of a bank to a one-tenant engine seeded ``seeds[t]`` on tenant t's stream.
+
+Banks (the reference's ``single`` plan, ``vmap`` over tenants): the state is
+one bank with a leading tenant axis (``core.state``), updated by one
+sequence of device operations for all tenants, each kernel launched once
+for the whole bank. ``W`` is ``(<=s, 2)``, broadcast to every tenant, or
+``(T, <=s, 2)``, a batch per tenant; ``n_valid`` a scalar or ``(T,)``.
+``estimate()`` answers ``(T,)`` (``(T, n_vertices)`` for ``local``), cached
+per step and served to ``estimate_tenant`` and ``estimate_tenants``.
 
 Schemes: ``EngineConfig.scheme`` names an estimator scheme
 (``repro_torch.core.schemes``: ``global``, ``naive``, ``local``); the engine
@@ -32,9 +42,9 @@ chunked path, as the reference does). Snapshots of such engines carry the
 ring at fixed capacity (``window_edges``, ``window_expiry``,
 ``window_len``), in the reference's format.
 
-The port runs one tenant; asking for more raises ``NotImplementedError``
-naming the ROADMAP item that brings it. The engine runs on the card unless
-``device="cpu"``.
+Window and decay over a bank of more than one tenant are not ported;
+asking for them raises ``NotImplementedError`` naming the ROADMAP item that
+brings them. The engine runs on the card unless ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -95,10 +105,12 @@ class EngineConfig:
             raise ValueError(
                 "window and decay are mutually exclusive dynamic modes; "
                 f"got window={self.window}, decay={self.decay}")
-        if self.n_tenants != 1:
+        if self.n_tenants < 1:
+            raise ValueError(f"n_tenants must be >= 1, got {self.n_tenants}")
+        if self.n_tenants > 1 and (self.window or self.decay):
             raise NotImplementedError(
-                "the port runs one tenant; banks of tenants come with ROADMAP "
-                "A.10, 'Multi-tenant banks'")
+                "window/decay over a bank of more than one tenant comes with ROADMAP "
+                "A.19, 'The window clock's host ring' (one ring per tenant)")
         self.resolved_scheme()
         if self.seeds is not None and len(self.seeds) != self.n_tenants:
             raise ValueError(f"seeds has {len(self.seeds)} entries for {self.n_tenants} tenants")
@@ -119,27 +131,29 @@ class SnapshotMismatch(ValueError):
 
 @dataclass
 class EngineDiagnostics:
-    """The reference's dynamic-stream counters (host-side, not part of the
-    snapshot)."""
+    """The reference's ingest and dynamic-stream counters (host-side, not
+    part of the snapshot)."""
 
+    batches_ingested: int = 0
+    edges_ingested: int = 0  # max over tenants, per batch
     delete_batches: int = 0  # explicit turnstile deletion batches applied
-    edges_deleted: int = 0  # valid edges in those batches
+    edges_deleted: int = 0  # max-over-tenants valid edges in those batches
     window_expired: int = 0  # edges expired by the window/decay clock
 
 
 @dataclass
 class StagedChunk:
-    """A K-batch superbatch already on the engine's device (``stage_chunk``).
-    On CUDA the upload runs on a side stream; ``ready`` is the event the
-    ingest waits for. The host rows stay for the window clock (``W_host`` is
-    None on an insertion-only engine)."""
+    """A K-batch superbatch already on the engine's device (``stage_chunk``),
+    broadcast to the tenant axis. On CUDA the upload runs on a side stream;
+    ``ready`` is the event the ingest waits for. The host rows stay for the
+    window clock (``W_host`` is None on an insertion-only engine)."""
 
-    Wb: torch.Tensor  # (K, s, 2) int32
-    nv: torch.Tensor  # (K,) int32
-    edges: int  # total valid edges (host-side)
+    Wb: torch.Tensor  # (T, K, s, 2) int32
+    nv: torch.Tensor  # (T, K) int32
+    edges: int  # max-over-tenants valid edges of each batch, summed (host-side)
     ready: Any = field(default=None, repr=False)
-    W_host: Optional[np.ndarray] = field(default=None, repr=False)  # (K, s, 2) int32
-    nv_host: Optional[np.ndarray] = field(default=None, repr=False)  # (K,) int64
+    W_host: Optional[np.ndarray] = field(default=None, repr=False)  # (T, K, s, 2) int32
+    nv_host: Optional[np.ndarray] = field(default=None, repr=False)  # (T, K) int64
 
 
 def _snapshot_config(snap: dict) -> tuple:
@@ -153,7 +167,8 @@ def _edge_keys(E: np.ndarray) -> np.ndarray:
 
 
 class TriangleCountEngine:
-    """Streaming triangle counter for one tenant (see module docstring)."""
+    """Streaming triangle counter for a bank of tenants (see module
+    docstring)."""
 
     def __init__(self, config: EngineConfig):
         self.config = config
@@ -164,16 +179,18 @@ class TriangleCountEngine:
         self._step = 0  # batches ingested so far: the RNG fold_in counter
         self._dyn_step = 0  # signed batches applied (inserts and deletions)
         self.diag = EngineDiagnostics()
-        # the window/decay clock: insertions so far (equal to m_seen, kept on
-        # the host so no expiry check waits on the device), and the ring of
-        # live rows in insertion order: edges (n, 2) int32 as inserted, and
-        # each one's expiry position (dead once below the clock)
+        # the window/decay clock, which runs one tenant: insertions so far
+        # (equal to m_seen, kept on the host so no expiry check waits on the
+        # device), and the ring of live rows in insertion order: edges
+        # (n, 2) int32 as inserted, and each one's expiry position (dead
+        # once below the clock)
         self._dynamic = bool(config.window or config.decay)
         self._inserted = 0
         self._win_edges = np.zeros((0, 2), np.int32)
         self._win_expiry = np.zeros((0,), np.int64)
-        self._root_key = rng.PRNGKey(config.tenant_seeds()[0], self.device)
-        self._state = self.scheme.init_state(config.r, self.device)
+        self._root_key = torch.stack(
+            [rng.PRNGKey(seed, self.device) for seed in config.tenant_seeds()])
+        self._state = self.scheme.init_state(config.r, self.device, config.n_tenants)
         self._est_cache: dict[int, np.ndarray] = {}
         self._copy_stream = (
             torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
@@ -191,33 +208,35 @@ class TriangleCountEngine:
         return self._dyn_step
 
     @property
+    def n_tenants(self) -> int:
+        return self.config.n_tenants
+
+    @property
     def state(self) -> EstimatorState:
+        """The bank: every field leads with the tenant axis."""
         return self._state
 
     def edges_seen(self) -> np.ndarray:
-        """(n_tenants,) int64: stream length ingested."""
-        return np.array([int(self._state.m_seen)], np.int64)
+        """(n_tenants,) int64: stream length ingested per tenant."""
+        return self._state.m_seen.cpu().numpy().astype(np.int64)
 
     # -- host -> device ------------------------------------------------------
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        """Copy a host array to the device through a pinned buffer without
-        blocking the host (a plain copy on the CPU)."""
-        host = torch.from_numpy(np.ascontiguousarray(arr))
+        """Copy a host array (a broadcast view too) to the device through a
+        pinned buffer without blocking the host (a plain copy on the CPU)."""
+        arr = np.asarray(arr)
         if self.device.type == "cpu":
-            return host.clone()
-        pinned = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
-        pinned.copy_(host)
+            return torch.from_numpy(np.array(arr, order="C"))
+        dtype = torch.from_numpy(np.empty(0, arr.dtype)).dtype
+        pinned = torch.empty(arr.shape, dtype=dtype, pin_memory=True)
+        np.copyto(pinned.numpy(), arr)
         return pinned.to(self.device, non_blocking=True)
 
     def _pad(self, W: np.ndarray) -> tuple[np.ndarray, int]:
         s = self.config.batch_size
         W = np.asarray(W, dtype=np.int32)
-        if W.ndim == 3:
-            if W.shape[0] != 1:
-                raise ValueError(f"got {W.shape[0]} tenant batches for 1 tenant")
-            W = W[0]
         if W.ndim != 2 or W.shape[1] != 2:
-            raise ValueError(f"W must be (s, 2) or (1, s, 2), got {W.shape}")
+            raise ValueError(f"a tenant's batch must be (s, 2), got {W.shape}")
         n = W.shape[0]
         if n > s:
             raise ValueError(f"batch of {n} edges exceeds batch_size={s}")
@@ -225,51 +244,84 @@ class TriangleCountEngine:
             W = np.concatenate([W, np.zeros((s - n, 2), np.int32)])
         return W, n
 
+    def _bank_batch(self, W, n_valid) -> tuple[np.ndarray, np.ndarray]:
+        """A batch for every tenant, (T, s, 2) int32, and the valid counts,
+        (T,) int64: ``W`` (<=s, 2) broadcast to every tenant, or
+        (T, <=s, 2) one batch each; ``n_valid`` (a scalar, or (T,) for
+        per-tenant batches) overrides the inferred counts when W is
+        pre-padded."""
+        W = np.asarray(W)
+        T = self.n_tenants
+        if W.ndim == 2:
+            Wp, n = self._pad(W)
+            n = n if n_valid is None else int(np.asarray(n_valid).reshape(-1)[0])
+            return np.broadcast_to(Wp[None], (T,) + Wp.shape), np.full((T,), n, np.int64)
+        if W.ndim != 3:
+            raise ValueError(f"W must be (s, 2) or (T, s, 2), got {W.shape}")
+        if W.shape[0] != T:
+            raise ValueError(f"got {W.shape[0]} tenant batches for {T} tenants")
+        padded = [self._pad(W[t]) for t in range(T)]
+        Wb = np.stack([p[0] for p in padded])
+        if n_valid is None:
+            return Wb, np.array([p[1] for p in padded], np.int64)
+        return Wb, np.broadcast_to(np.asarray(n_valid, np.int64).reshape(-1), (T,)).copy()
+
+    def _counts(self, nv: np.ndarray):
+        """The batch counts as the update takes them: one int where every
+        tenant has the same count, else a (T,) tensor on the device."""
+        return int(nv[0]) if (nv == nv[0]).all() else self._upload(nv.astype(np.int32))
+
     # -- ingestion -----------------------------------------------------------
     def ingest(self, W: np.ndarray, n_valid: Optional[Any] = None) -> None:
-        """Fold one batch ((<=s, 2) int32, or (1, <=s, 2)) into the
-        estimators; ``n_valid`` overrides the inferred count when W is
-        pre-padded."""
-        Wp, n = self._pad(W)
-        nv = n if n_valid is None else int(np.asarray(n_valid).reshape(-1)[0])
-        key = rng.fold_in(self._root_key, self._step)
-        self._state = self.scheme.bulk_update(self._state, self._upload(Wp), nv, key,
-                                              search=self._search)
+        """Fold one batch into every tenant's estimators: W (<=s, 2) int32,
+        broadcast to every tenant, or (T, <=s, 2), a batch per tenant;
+        ``n_valid`` (a scalar or (T,)) overrides the inferred counts when W
+        is pre-padded."""
+        Wb, nv = self._bank_batch(W, n_valid)
+        keys = rng.fold_in(self._root_key, self._step)
+        self._state = self.scheme.bulk_update(self._state, self._upload(Wb), self._counts(nv),
+                                              keys, search=self._search)
         self._step += 1
         self._dyn_step += 1
-        self._track_inserts(Wp, nv)
+        self.diag.batches_ingested += 1
+        self.diag.edges_ingested += int(nv.max())
+        self._track_inserts(Wb[0], nv[0])
         self._flush_expired()
 
     def stage_chunk(self, Ws, n_valids=None) -> StagedChunk:
-        """Upload a K-batch superbatch ((K, s, 2), or (1, K, s, 2)) ahead of
-        ``ingest_chunk``; ``n_valids`` (K,), or one count for every batch,
-        defaults to all-full. On CUDA the copy is issued on a side stream
-        from a pinned buffer, so it overlaps the chunk the device is
+        """Upload a K-batch superbatch ahead of ``ingest_chunk``: (K, s, 2),
+        broadcast to every tenant, or (T, K, s, 2); ``n_valids`` (K,) or
+        (T, K), or one count for every batch, defaults to all-full. On CUDA
+        the copy of the whole (T, K, s, 2) superbatch is issued on a side
+        stream from a pinned buffer, so it overlaps the chunk the device is
         computing."""
-        K, s = self.config.chunk_size, self.config.batch_size
+        K, s, T = self.config.chunk_size, self.config.batch_size, self.n_tenants
         if K <= 1:
             raise ValueError("chunked ingest needs EngineConfig(chunk_size > 1)")
         arr = np.asarray(Ws, dtype=np.int32)
-        if arr.ndim == 4 and arr.shape[0] == 1:
-            arr = arr[0]
-        if arr.shape != (K, s, 2):
-            raise ValueError(f"chunk must be ({K}, {s}, 2), got {arr.shape}")
-        nv_host = np.full((K,), s, np.int64) if n_valids is None else (
+        if arr.ndim == 3 and arr.shape == (K, s, 2):
+            arr = np.broadcast_to(arr[None], (T, K, s, 2))
+        if arr.shape != (T, K, s, 2):
+            raise ValueError(f"chunk must be ({K}, {s}, 2) or ({T}, {K}, {s}, 2), "
+                             f"got {arr.shape}")
+        nv_host = np.full((T, K), s, np.int64) if n_valids is None else (
             np.asarray(n_valids, np.int64))
-        if nv_host.ndim == 2 and nv_host.shape[0] == 1:
-            nv_host = nv_host[0]
-        if nv_host.shape not in ((), (1,), (K,)):
-            raise ValueError(f"n_valids must hold {K} counts, got {nv_host.shape}")
-        nv_host = np.broadcast_to(nv_host, (K,)).copy()  # a scalar counts for every batch
+        try:  # a scalar counts for every batch, (K,) for every tenant
+            nv_host = np.broadcast_to(nv_host, (T, K)).copy()
+        except ValueError:
+            raise ValueError(f"n_valids must hold {K} counts or ({T}, {K}), "
+                             f"got {nv_host.shape}") from None
         nv = nv_host.astype(np.int32)
+        # max over tenants per batch, summed over K: what K ingest() calls count
+        edges = int(nv_host.max(axis=0).sum())
         host = {"W_host": arr if self._dynamic else None, "nv_host": nv_host}
         if self._copy_stream is None:
-            return StagedChunk(self._upload(arr), self._upload(nv), int(nv.sum()), **host)
+            return StagedChunk(self._upload(arr), self._upload(nv), edges, **host)
         with torch.cuda.stream(self._copy_stream):
             Wb, nvb = self._upload(arr), self._upload(nv)
             ready = torch.cuda.Event()
             ready.record(self._copy_stream)
-        return StagedChunk(Wb, nvb, int(nv.sum()), ready, **host)
+        return StagedChunk(Wb, nvb, edges, ready, **host)
 
     def ingest_chunk(self, Ws, n_valids=None) -> None:
         """Fold ``chunk_size`` batches in one update (the scheme's
@@ -290,8 +342,10 @@ class TriangleCountEngine:
         K = self.config.chunk_size
         self._step += K
         self._dyn_step += K
+        self.diag.batches_ingested += K
+        self.diag.edges_ingested += c.edges
         for k in range(K):
-            self._track_inserts(None if c.W_host is None else c.W_host[k], c.nv_host[k])
+            self._track_inserts(None if c.W_host is None else c.W_host[0, k], c.nv_host[0, k])
         self._flush_expired()
 
     def ingest_stream(self, batch_iter: Iterable[tuple[np.ndarray, int]]) -> int:
@@ -329,29 +383,29 @@ class TriangleCountEngine:
             torch.cuda.synchronize(self.device)
 
     # -- turnstile deletions / windowed expiry -------------------------------
-    def _apply_delete(self, Dp: np.ndarray, n_valid: int) -> None:
-        """Fold one padded (s, 2) deletion batch into the state through the
-        scheme's ``delete_update``. Internal: the explicit ``delete`` and the
-        window clock's flush both come here; neither ``dyn_step`` nor the
-        ring is touched."""
-        self._state = self.scheme.delete_update(self._state, self._upload(Dp), n_valid,
+    def _apply_delete(self, Db: np.ndarray, nv: np.ndarray) -> None:
+        """Fold one padded (T, s, 2) deletion batch with its (T,) counts into
+        the bank through the scheme's ``delete_update``. Internal: the
+        explicit ``delete`` and the window clock's flush both come here;
+        neither ``dyn_step`` nor the ring is touched."""
+        self._state = self.scheme.delete_update(self._state, self._upload(Db), self._counts(nv),
                                                 search=self._search)
         self._est_cache = {}  # the state changed without a step: cached answers are stale
 
     def delete(self, D: np.ndarray, n_valid: Optional[Any] = None) -> None:
-        """Turnstile-delete one batch of edges ((<=s, 2), or (1, <=s, 2)).
+        """Turnstile-delete one batch of edges from every tenant: (<=s, 2),
+        broadcast to every tenant, or (T, <=s, 2), as ``ingest`` takes W.
         Each edge must be live (inserted and not yet deleted or expired),
         the single-live-copy contract of ``core.bulk.bulk_delete_update``.
         Draws no randomness and leaves ``step`` as it is; advances
         ``dyn_step``."""
-        Dp, n = self._pad(D)
-        nv = n if n_valid is None else int(np.asarray(n_valid).reshape(-1)[0])
-        self._apply_delete(Dp, nv)
+        Db, nv = self._bank_batch(D, n_valid)
+        self._apply_delete(Db, nv)
         if self._dynamic:
-            self._forget_window(Dp, nv)
+            self._forget_window(Db[0], int(nv[0]))
         self._dyn_step += 1
         self.diag.delete_batches += 1
-        self.diag.edges_deleted += nv
+        self.diag.edges_deleted += int(nv.max())
 
     def ingest_signed_stream(self, batch_iter: Iterable) -> int:
         """Drain a signed batch iterator (``graph_stream.signed_batches``):
@@ -431,9 +485,9 @@ class TriangleCountEngine:
         s = self.config.batch_size
         for lo in range(0, total, s):
             take = expired[lo:lo + s]
-            Dp = np.zeros((s, 2), np.int32)
-            Dp[: len(take)] = take
-            self._apply_delete(Dp, len(take))
+            Db = np.zeros((1, s, 2), np.int32)
+            Db[0, : len(take)] = take
+            self._apply_delete(Db, np.array([len(take)], np.int64))
 
     def _forget_window(self, Dp: np.ndarray, n_valid: int) -> None:
         """Drop explicitly deleted edges from the ring, so the clock never
@@ -446,15 +500,15 @@ class TriangleCountEngine:
 
     # -- queries -------------------------------------------------------------
     def estimate(self) -> np.ndarray:
-        """Estimates with a leading tenant axis, cached per step: (1,)
-        float64 for the scalar schemes (the median of means), (1,
-        n_vertices) float64 per-vertex counts for ``local``."""
+        """Per-tenant estimates, one query for the whole bank, cached per
+        step: (T,) float64 for the scalar schemes (the median of means),
+        (T, n_vertices) float64 per-vertex counts for ``local``."""
         cached = self._est_cache.get(self._step)
         if cached is not None:
             return cached
         est = self.scheme.estimate(self._state, self.config.groups,
                                    backend=self._ingest_backend)
-        out = est.to(torch.float64).cpu().numpy().reshape((1,) + tuple(est.shape))
+        out = est.to(torch.float64).cpu().numpy()
         self._est_cache = {self._step: out}
         return out
 
@@ -463,6 +517,11 @@ class TriangleCountEngine:
         served from the per-step cache."""
         e = self.estimate()[tenant]
         return float(e) if np.ndim(e) == 0 else e
+
+    def estimate_tenants(self, tenants: Iterable[int]) -> np.ndarray:
+        """Rows of ``estimate()`` for the given tenant ids, from the one
+        cached bank query."""
+        return self.estimate()[np.asarray(list(tenants), dtype=np.int64)]
 
     # -- snapshot / restore --------------------------------------------------
     def snapshot(self) -> dict:
@@ -474,8 +533,8 @@ class TriangleCountEngine:
         int64 (-1 padding) and ``window_len`` (T,) int64, C the window or
         the decay TTL cap."""
         self._flush_expired()  # no dead edge outlives the snapshot
-        snap = {f: getattr(self._state, f).cpu().numpy()[None] for f in _STATE_FIELDS}
-        snap["root_keys"] = self._root_key.cpu().numpy().astype(np.uint32)[None]
+        snap = {f: getattr(self._state, f).cpu().numpy() for f in _STATE_FIELDS}
+        snap["root_keys"] = self._root_key.cpu().numpy().astype(np.uint32)
         snap["step"] = np.int64(self._step)
         snap["dyn_step"] = np.int64(self._dyn_step)
         snap["config"] = np.array(
@@ -524,14 +583,21 @@ class TriangleCountEngine:
             n = int(np.asarray(snap["window_len"]).reshape(-1)[0])
             win_edges = we[0, :n].astype(np.int32)
             win_expiry = np.asarray(snap["window_expiry"])[0, :n].astype(np.int64)
+        T, r = self.n_tenants, self.config.r
+        shapes = {"f1": (T, r, 2), "chi": (T, r), "f2": (T, r, 2), "has_f3": (T, r),
+                  "m_seen": (T,), "root_keys": (T, 2)}
+        for f, shape in shapes.items():
+            if np.shape(snap[f]) != shape:
+                raise SnapshotMismatch(f"snapshot {f} has shape {np.shape(snap[f])}, "
+                                       f"engine needs {shape}")
         dtypes = {"f1": torch.int32, "chi": torch.int32, "f2": torch.int32,
                   "has_f3": torch.bool, "m_seen": torch.int64}
         self._state = EstimatorState(**{
-            f: torch.from_numpy(np.array(np.asarray(snap[f])[0])).to(
+            f: torch.from_numpy(np.array(np.asarray(snap[f]))).to(
                 device=self.device, dtype=dtypes[f])
             for f in _STATE_FIELDS
         })
-        keys = np.asarray(snap["root_keys"]).astype(np.int64)[0]
+        keys = np.asarray(snap["root_keys"]).astype(np.int64)
         self._root_key = torch.from_numpy(keys).to(self.device)
         self._step = int(snap["step"])
         self._dyn_step = int(snap.get("dyn_step", snap["step"]))

@@ -5,7 +5,10 @@ device work. With ``chunk_size = K > 1`` the loop assembles K-batch
 superbatches and double-buffers them: it dispatches the staged chunk (the
 call returns once the work is queued), then stages the next one, whose upload
 overlaps the dispatched chunk's compute. The ragged tail goes batch by batch.
-The state is bit-identical to per-batch ingestion.
+The state is bit-identical to per-batch ingestion. Over a bank of tenants an
+item's W is ``(s, 2)`` (every tenant) or ``(T, s, 2)`` (a batch per tenant)
+and its ``n_valid`` a scalar or ``(T,)``; the report's edges count the
+largest of the tenants' batches, as the reference's do.
 
 Validation: by default every batch is checked (``engine.faults``). A
 poisoned batch is quarantined to a dead-letter buffer with its source
@@ -58,7 +61,7 @@ class StreamReport:
     """What one ``run_stream`` call did."""
 
     batches: int = 0  # batches ingested by this call (not the resumed ones)
-    edges: int = 0
+    edges: int = 0  # max over tenants of the edges ingested by this call
     seconds: float = 0.0
     resumed_from: int = 0  # engine step (dyn_step, signed) restored from a checkpoint, 0 if fresh
     ckpt_corrupt_skipped: int = 0  # torn or corrupt checkpoints walked past

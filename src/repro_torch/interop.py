@@ -54,6 +54,18 @@ def to_jax_snapshot(snap: dict) -> dict:
     return _normalise(snap)
 
 
+def tenant_snapshot(snap: dict, tenant: int) -> dict:
+    """Tenant ``tenant`` of a bank's snapshot as a one-tenant snapshot in
+    the same format (its state, root key and window ring; the bank's step
+    cursors and scheme)."""
+    s = _normalise(snap)
+    out = {k: s[k][tenant:tenant + 1] for k in (*_FIELDS, *_WINDOW) if k in s and k != "config"}
+    out["config"] = s["config"].copy()
+    out["config"][2] = 1
+    out.update(step=s["step"], dyn_step=s["dyn_step"], scheme=s["scheme"])
+    return out
+
+
 def state_sha256(snap: dict) -> str:
     """sha256 over the estimator state of a snapshot: f1, chi, f2 (int32),
     has_f3 (one byte each) and m_seen (int64), little-endian, in that order.

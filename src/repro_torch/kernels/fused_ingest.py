@@ -11,6 +11,12 @@ chunk's first step.
 form of the Pallas kernel's arguments; ``fused_ingest_plain``, the kernel's
 plain version, computes those draws and selects (``core.bulk.chunk_draws``)
 and runs it.
+
+Every argument may carry a leading tenant axis (a bank of T tenants, as the
+reference runs its kernel under ``jax.vmap``): state (T, r, ..), structures
+(T, K, ..), Ws (T, K, s, 2), n_valids (T, K), m_seen (T,), key (T, 2) and
+step0 an int or a (T,) int64 tensor of per-tenant first steps. The kernel
+route is then one launch a batch for all T tenants, as for one.
 """
 from __future__ import annotations
 
@@ -21,7 +27,7 @@ import torch
 from repro_torch.kernels import _build
 
 Tensor = torch.Tensor
-_ARGS = [ctypes.c_void_p] * 19 + [ctypes.c_int64] * 4 + [ctypes.c_void_p, _build.QUEUED]
+_ARGS = [ctypes.c_void_p] * 20 + [ctypes.c_int64] * 4 + [ctypes.c_void_p, _build.QUEUED]
 
 
 def fused_ingest_hoisted(
@@ -31,23 +37,26 @@ def fused_ingest_hoisted(
     """The K-batch loop on hoisted draws in plain PyTorch: ``core.bulk.fused_batch``
     per batch with ``torch.searchsorted`` searches. Per (batch, estimator):
     replace (K, r) bool, w_sel (K, r, 2) int32, f1_bpos (K, r) int32, coin
-    (K, r) float32, phi_hi/phi_lo (K, r) int32 carrying the uint32 bits."""
+    (K, r) float32, phi_hi/phi_lo (K, r) int32 carrying the uint32 bits; a
+    bank adds its leading tenant axis to these and to the state."""
     from repro_torch.core.bulk import fused_batch
     from repro_torch.core.rank import RankStructure
 
-    for k in range(replace.shape[0]):
-        # rank=None: the batch loop never reads the stored ranks
-        R = RankStructure(key_desc[k], key_rank[k], src[k], dst[k], pos[k],
-                          None, ekey[k], epos[k])
+    for k in range(replace.shape[-2]):
+        # rank=None: the batch loop never reads the stored ranks; a bank's
+        # searched keys are copied to contiguous rows, as searchsorted wants
+        R = RankStructure(key_desc[..., k, :].contiguous(), key_rank[..., k, :].contiguous(),
+                          src[..., k, :], dst[..., k, :], pos[..., k, :], None,
+                          ekey[..., k, :].contiguous(), epos[..., k, :])
         f1, chi, f2, has_f3 = fused_batch(
-            f1, chi, f2, has_f3, R, replace[k], w_sel[k], f1_bpos[k],
-            coin[k], phi_hi[k], phi_lo[k])
+            f1, chi, f2, has_f3, R, replace[..., k, :], w_sel[..., k, :, :],
+            f1_bpos[..., k, :], coin[..., k, :], phi_hi[..., k, :], phi_lo[..., k, :])
     return f1, chi, f2, has_f3
 
 
 def fused_ingest_plain(
     f1, chi, f2, has_f3, key_desc, key_rank, src, dst, pos, ekey, epos,
-    Ws, n_valids, m_seen, key, step0: int,
+    Ws, n_valids, m_seen, key, step0,
 ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
     """The kernel's function in plain PyTorch: the chunk's draws and step-1
     selects (``core.bulk.chunk_draws``), then ``fused_ingest_hoisted``."""
@@ -61,7 +70,7 @@ def fused_ingest_plain(
 
 def fused_ingest(
     f1, chi, f2, has_f3, key_desc, key_rank, src, dst, pos, ekey, epos,
-    Ws, n_valids, m_seen, key, step0: int,
+    Ws, n_valids, m_seen, key, step0,
 ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
     """Apply a K-batch chunk to the state; returns new (f1, chi, f2, has_f3).
 
@@ -70,14 +79,19 @@ def fused_ingest(
     int64, epos (K, s) int32. The chunk: Ws (K, s, 2) int32, n_valids (K,)
     int32, m_seen the 0-d int64 stream length before it, key the (2,) int64
     stream key, step0 the chunk's first step (batch k draws from
-    ``fold_in(key, step0 + k)``). Everything stays on the device: no host
-    sync. The caller owns the m_seen update."""
+    ``fold_in(key, step0 + k)``); with the tenant axis (module docstring)
+    tenant t draws from ``fold_in(key[t], step0[t] + k)``. Everything stays
+    on the device: no host sync. The caller owns the m_seen update."""
     if f1.device.type == "cpu":
         return fused_ingest_plain(f1, chi, f2, has_f3, key_desc, key_rank, src, dst, pos,
                                   ekey, epos, Ws, n_valids, m_seen, key, step0)
     dev = f1.device
-    K, s = Ws.shape[0], Ws.shape[1]
-    r = f1.shape[0]
+    lead = tuple(f1.shape[:-2])
+    if len(lead) > 1:
+        raise ValueError(f"fused_ingest: f1 must be (r, 2) or (T, r, 2), got {tuple(f1.shape)}")
+    T = lead[0] if lead else 1
+    K, s = Ws.shape[-3], Ws.shape[-2]
+    r = f1.shape[-2]
     i32, i64 = torch.int32, torch.int64
     for t, name, dt, shape in (
         (f1, "f1", i32, (r, 2)), (chi, "chi", i32, (r,)), (f2, "f2", i32, (r, 2)),
@@ -89,14 +103,18 @@ def fused_ingest(
         (n_valids, "n_valids", i32, (K,)), (m_seen, "m_seen", i64, ()),
         (key, "key", i64, (2,)),
     ):
-        _build.check(t, name, dt, shape, dev)
+        _build.check(t, name, dt, lead + shape, dev)
+    if isinstance(step0, Tensor):
+        _build.check(step0, "step0", i64, lead, dev)
+    else:  # the kernel reads every tenant's first step from the device
+        step0 = torch.full(lead or (1,), int(step0), dtype=i64, device=dev)
     if s < 1 or 2 * s >= 2**31 or r >= 2**31:
         raise ValueError("fused_ingest: need 1 <= s and r, 2s below 2^31")
     f1_out = torch.empty_like(f1)
     chi_out = torch.empty_like(chi)
     f2_out = torch.empty_like(f2)
     has_f3_out = torch.empty_like(has_f3)
-    if K == 0 or r == 0:
+    if K == 0 or r == 0 or T == 0:
         return f1_out.copy_(f1), chi_out.copy_(chi), f2_out.copy_(f2), has_f3_out.copy_(has_f3)
     _build.launch(
         "fused_ingest", _build.load("fused_ingest", "fused_ingest", _ARGS),
@@ -104,7 +122,7 @@ def fused_ingest(
         key_desc.data_ptr(), key_rank.data_ptr(), src.data_ptr(), dst.data_ptr(),
         pos.data_ptr(), ekey.data_ptr(), epos.data_ptr(), Ws.data_ptr(),
         n_valids.data_ptr(), m_seen.data_ptr(), key.data_ptr(), f1_out.data_ptr(),
-        chi_out.data_ptr(), f2_out.data_ptr(), has_f3_out.data_ptr(), r, K, s, int(step0),
-        _build.stream_handle(dev),
+        chi_out.data_ptr(), f2_out.data_ptr(), has_f3_out.data_ptr(),
+        step0.data_ptr(), T, r, K, s, _build.stream_handle(dev),
     )
     return f1_out, chi_out, f2_out, has_f3_out

@@ -10,9 +10,11 @@ from repro_torch.kernels.segscan import segmented_max_scan_plain as segmented_ma
 from repro_torch.kernels.segscan import segscan_plain as segscan_ref
 
 
-def fused_ingest_ref(state, Ws, n_valids, key, step0: int = 0):
+def fused_ingest_ref(state, Ws, n_valids, key, step0=0):
     """Chunk-ingest oracle: the sequential scan of ``bulk_update_all`` with
-    plain searches. The fused kernel path must be bit-identical to it."""
+    plain searches, for one tenant or a bank (a leading tenant axis on every
+    argument, ``step0`` an int or a (T,) tensor). The fused kernel path must
+    be bit-identical to it."""
     from repro_torch.core.bulk import _bulk_update_chunk_scan
 
     return _bulk_update_chunk_scan(state, Ws, n_valids, key, step0, "eager")

@@ -1,12 +1,16 @@
 """Streaming triangle-count CLI: a thin front end over TriangleCountEngine
-(``repro.launch.stream``, single tenant).
+(``repro.launch.stream``).
 
 Generates an edge stream, drains it through ``run_stream`` and prints the
 reference CLI's lines: ``stream: m=.. tau=..``, ``processed ..``, then
 ``estimate: ..`` and ``rel.err ..`` where the true count is known, or for
 ``--scheme local`` the per-vertex line ``local[tenant 0] sum/3=.. top5=[..]
-l1.err=..``. For the same arguments these lines are the JAX CLI's (run
-there with ``--ckpt-every 0``). ``--ckpt-every N`` saves a checkpoint every
+l1.err=..``. With ``--tenants N`` the same stream is counted by N
+independent estimator banks seeded ``--seed + t`` in one bank: tenant 0 is
+the one-tenant run bit for bit, an ``estimate[tenant t]: ..`` line follows
+``estimate:`` for each further tenant (a ``local[tenant t]`` line each
+under ``--scheme local``). For the same arguments these lines are the JAX
+CLI's (run there with ``--ckpt-every 0``). ``--ckpt-every N`` saves a checkpoint every
 N batches into ``--ckpt-dir`` (default ``repro_stream_ckpt`` in the temp
 directory, ``/tmp`` unless ``TMPDIR`` says otherwise) and resumes from its
 newest one.
@@ -28,6 +32,8 @@ behind ``estimate:`` (or ``local[tenant 0]``) is the live edge set.
       --graph er --nodes 100 --edges 1500      # per-vertex counts, on the GPU
   PYTHONPATH=src python -m repro_torch.launch.stream --device cpu --graph er \\
       --nodes 30 --edges 200 --estimators 4096 --batch 16 --deletions 0.2
+  PYTHONPATH=src python -m repro_torch.launch.stream --device cpu --graph ba \\
+      --nodes 500 --estimators 4096 --batch 512 --tenants 3
 """
 from __future__ import annotations
 
@@ -143,6 +149,9 @@ def main(argv=None) -> None:
                     help="batches fused per update; state is bit-identical for any value")
     ap.add_argument("--groups", type=int, default=9)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tenants", type=int, default=1,
+                    help="independent estimator banks over the same stream, seeded "
+                         "--seed + t")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     add_scheme_flags(ap)
     add_dynamic_flags(ap)
@@ -156,6 +165,9 @@ def main(argv=None) -> None:
                     help="exit nonzero unless the estimate lands within this "
                          "relative error of the true count")
     args = ap.parse_args(argv)
+    if args.tenants > 1 and (args.window or args.decay):
+        sys.exit("--window/--decay over --tenants > 1 is not ported yet "
+                 "(ROADMAP A.19: one ring per tenant)")
 
     edges, tau = make_stream(args)
     dynamic = bool(args.deletions or args.window or args.decay)
@@ -169,7 +181,8 @@ def main(argv=None) -> None:
         print(f"stream: m={len(edges)} tau={tau}", flush=True)
     engine = TriangleCountEngine(EngineConfig(
         r=args.estimators, batch_size=args.batch, groups=args.groups,
-        seeds=(args.seed,), chunk_size=args.chunk, window=args.window, decay=args.decay,
+        n_tenants=args.tenants, seeds=tuple(args.seed + t for t in range(args.tenants)),
+        chunk_size=args.chunk, window=args.window, decay=args.decay,
         device=args.device, **scheme_args(args),
     ))
     ckpt = {"ckpt_dir": args.ckpt_dir if args.ckpt_every else None,
@@ -192,11 +205,16 @@ def main(argv=None) -> None:
         true_counts = None
         if tau is not None:
             true_counts = local_triangle_counts(truth_edges, args.vertices or args.nodes)
-        print_local_estimates(ests[0], 0, true_counts)
+        for t in range(args.tenants):
+            print_local_estimates(ests[t], t, true_counts)
         return
     est = float(ests[0])
     print(f"estimate: {est:.1f}" + (
         f"  true: {tau}  rel.err: {abs(est - tau) / max(tau, 1):.3%}" if tau else ""))
+    for t in range(1, args.tenants):
+        e = float(ests[t])
+        print(f"estimate[tenant {t}]: {e:.1f}" + (
+            f"  rel.err: {abs(e - tau) / max(tau, 1):.3%}" if tau else ""))
     if args.assert_rel_err:
         if tau is None:
             sys.exit("--assert-rel-err needs a computable true count")

@@ -9,6 +9,10 @@ picks how:
             (``repro_torch.kernels.multisearch``), which on CPU tensors runs
             its plain version;
   "auto"    "kernel" for CUDA tensors, "eager" for CPU tensors.
+
+A bank searches row by row: keys (T, n), each row sorted, and queries
+(T, q) go to one batched kernel launch, or to ``torch.searchsorted``, which
+takes the same rows.
 """
 from __future__ import annotations
 

@@ -466,7 +466,7 @@ def test_ingest_chunk_broadcasts_a_scalar_n_valids():
     assert int(port.edges_seen()[0]) == int(ref.edges_seen()[0]) == 80
     assert state_sha256(port.snapshot()) == state_sha256(ref.snapshot())
     staged = _port(K=K).stage_chunk(Ws, np.int64(20))
-    assert staged.edges == 80 and staged.nv.tolist() == [20] * K
+    assert staged.edges == 80 and staged.nv.tolist() == [[20] * K]  # (T, K), as the reference
     with pytest.raises(ValueError, match="n_valids"):
         _port(K=K).stage_chunk(Ws, [20, 20])
 

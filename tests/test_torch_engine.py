@@ -128,8 +128,11 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 def test_unported_features_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="Multi-tenant"):
-        EngineConfig(r=64, batch_size=8, device="cpu", n_tenants=2)
+    # banks are ported; a window (or decay) over more than one tenant is not
+    with pytest.raises(NotImplementedError, match="A.19"):
+        EngineConfig(r=64, batch_size=8, device="cpu", n_tenants=2, window=10)
+    with pytest.raises(NotImplementedError, match="A.19"):
+        EngineConfig(r=64, batch_size=8, device="cpu", n_tenants=2, decay=10.0)
     # schemes are ported: an unknown name raises the reference's ValueError
     with pytest.raises(ValueError, match=r"unknown scheme 'nope'; registered: "
                                          r"\['global', 'local', 'naive'\]"):
