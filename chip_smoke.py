@@ -82,6 +82,28 @@ Phases, each of which raises on failure (nothing is caught):
              bulk_delete_update: its time back to back (CUDA events), its
              device busy time (torch.profiler) and its host enqueue time;
              and the host seconds of the window clock (ring appends, flushes);
+  chaos_full  the resilience layer at the full width on phase full's
+             stream, global scheme, kernel route, each run under a fault
+             plan and held to a state sha256 an earlier phase held to the
+             plain route: (a) one transient raise at engine.stage_chunk,
+             engine.ingest_chunk, the tail's engine.ingest and prefetch.get,
+             and a prefetch.get redelivery, ridden out with retries (1 ms
+             base): phase full's state, and the retries, duplicates and
+             fired counts the plan reckons; (b) checkpoint.write torn at save
+             #1 (after chunk 2) and a fatal raise at the tail's ingest: the
+             loop dies at step 8 with the torn staging dir leaked, a fresh
+             engine resumes from save #0 (step 4) and ends in phase full's
+             state; (c) report_every 1 under backpressure depth 1, with a
+             query answered before the stream and a 0.5 s delay before the
+             first chunk's ingest, so the report after chunk 1 is served
+             stale from the cache: every stale answer equals the fresh one of
+             its step, the state phase full's; (d) dynamic_full's deletion
+             burst through run_signed_stream under a transient engine.ingest
+             raise and a redelivery: that burst's state, multisearch_counts
+             launched on the deletion batch. Each run's host seconds and
+             edges/s are recorded beside phase full's, with the card, and
+             the host us of a check_fault with no plan installed and of a
+             with_retries around a call that does not fail;
   tenants_full  a bank of 4 tenants at the full width through the same
              engine: (a) global over four distinct streams, the planted
              stream under four seed-drawn vertex relabelings (the identity
@@ -121,7 +143,9 @@ Phases, each of which raises on failure (nothing is caught):
              the CUDA launches of one one-tenant call, and timed beside T
              times the one-tenant call;
   cli        python -m repro_torch.launch.stream prints the golden CLI lines
-             (global and local).
+             (global and local), and under the golden --fault-plan the JAX
+             CLI's estimate:, resilience: and fault plan installed: lines
+             and --diag-json blocks (golden/resilience_small.json).
 
 Tolerance: exact. Every kernel computes integer or bit-defined results
 (segment_sum sums integer-valued float64 below 2^53, where any order of its
@@ -1252,6 +1276,236 @@ def phase_dynamic_full(dev, full: dict) -> dict:
             "burst_digest": digest_b, "burst_tau": tau_b, "burst_s": burst_s}
 
 
+# the kernels of the chunked path, and of the per-batch path (the ragged
+# tail, run_signed_stream's batches)
+CHUNK_KERNELS = ("fused_ingest", "bitonic_sort_tiles", "segscan", "segmented_max_scan")
+BATCH_KERNELS = ("multisearch_counts", "bitonic_sort_tiles", "segscan")
+
+
+def loop_threads(before: set) -> list:
+    """The prefetch producers and checkpoint writers started since
+    ``before`` was taken that are still running."""
+    import threading
+
+    return [t for t in threading.enumerate() if t not in before
+            and getattr(getattr(t, "_target", None), "__name__", "") in ("_produce",
+                                                                       "_write_guarded")]
+
+
+def reckon(plan) -> dict:
+    """What a plan of transient faults must cost, from its specs alone: each
+    raise is retried ``times`` times, each redelivery dropped ``times``
+    times, and every spec fires ``times`` times (each spec's calls are
+    reached on the stream)."""
+    retries = sum(s.times for s in plan.specs if s.kind == "raise")
+    dups = sum(s.times for s in plan.specs if s.kind == "duplicate")
+    fired: dict = {}
+    for s in plan.specs:
+        fired[s.site] = fired.get(s.site, 0) + s.times
+    return {"retries": retries, "duplicate_batches": dups, "fired": fired}
+
+
+def phase_chaos_full(dev, card: str, full: dict, dynamic: dict) -> None:
+    """The resilience layer at the full width (r = 2^21, s = 2^20, K = 4) on
+    phase full's stream, global scheme, kernel route, each part held to a
+    state sha256 an earlier phase held to the plain route: (a) one transient
+    raise at each seam of the chunked path (stage_chunk, ingest_chunk, the
+    tail's ingest, the source) and a redelivered item, ridden out; (b) a
+    torn checkpoint, then a kill in the tail, then a fresh engine that
+    resumes from the same directory; (c) stale answers under backpressure;
+    (d) dynamic_full's deletion burst through run_signed_stream under a
+    transient raise and a redelivery. Host seconds and edges/s of each run
+    are recorded beside phase full's, not gated."""
+    import threading
+
+    import torch
+
+    from repro_torch.data.graph_stream import batches
+    from repro_torch.engine import (
+        EngineConfig,
+        FaultInjected,
+        ResilienceConfig,
+        RetryPolicy,
+        TriangleCountEngine,
+        fault_plan,
+        parse_fault_plan,
+        run_signed_stream,
+        run_stream,
+    )
+    from repro_torch.interop import state_sha256
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    edges, s, K = full["edges"], FULL["s"], FULL["K"]
+    m = len(edges)
+    retry = RetryPolicy(max_retries=3, base_s=0.001, seed=FULL["seed"])
+
+    def engine():
+        return TriangleCountEngine(EngineConfig(
+            r=FULL["r"], batch_size=s, chunk_size=K, groups=FULL["groups"],
+            seeds=(FULL["seed"],), device=dev.type, ingest="kernel", multisearch="kernel"))
+
+    def drive(name, spec, fn, kernels=CHUNK_KERNELS + BATCH_KERNELS, killed=False):
+        """``fn()`` under the plan ``spec`` with every count zeroed just
+        before and read just after, every kernel of the path launched, and
+        the threads the loop started joined (bounded) while the plan is
+        installed. With ``killed`` the run must die of the injected fault."""
+        plan = parse_fault_plan(spec, seed=FULL["seed"])
+        before = set(threading.enumerate())
+        torch.cuda.synchronize(dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        out = None
+        with fault_plan(plan):
+            try:
+                out = fn()
+            except FaultInjected:  # the kill this run is built to die of
+                if not killed:
+                    raise
+            else:
+                if killed:
+                    raise AssertionError(f"chaos_full {name}: the fatal fault never fired")
+            finally:
+                for t in loop_threads(before):
+                    t.join(60)
+                    if t.is_alive():
+                        raise AssertionError(f"chaos_full {name}: {t.name} outlived the run")
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        missing = [k for k in kernels if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"chaos_full {name}: kernels never launched: {missing}")
+        return out, plan, launches, seconds
+
+    def same(name, eng, digest):
+        if state_sha256(eng.snapshot()) != digest:
+            raise AssertionError(f"chaos_full {name}: the state differs from the unfaulted run's")
+
+    # (a) transient faults at every seam of the chunked path
+    spec_a = ("engine.stage_chunk:raise@1,engine.ingest_chunk:raise@0,engine.ingest:raise@0,"
+              "prefetch.get:raise@2,prefetch.get:dup@5")
+    eng = engine()
+    rep_a, plan_a, launches_a, _ = drive("a", spec_a, lambda: run_stream(
+        eng, batches(edges, s), resilience=ResilienceConfig(retry=retry)))
+    same("a", eng, full["digest"])
+    want = reckon(plan_a)
+    got = {"retries": rep_a.retries, "duplicate_batches": rep_a.duplicate_batches,
+           "fired": plan_a.summary()["fired"]}
+    if got != want:
+        raise AssertionError(f"chaos_full a: counted {got}, the plan reckons {want}")
+
+    # (b) save #0 after chunk 1 lands, save #1 after chunk 2 is torn, the
+    # tail's ingest dies; a fresh engine resumes from the same directory
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="ckpt_chaos_", dir=ROOT / "build")
+    try:
+        ck = {"ckpt_dir": ckpt_dir, "ckpt_every": K,
+              "resilience": ResilienceConfig(retry=retry)}
+        killed = engine()
+        _, plan_b, launches_b, kill_s = drive(
+            "b kill", "checkpoint.write:torn@1,engine.ingest:raise@0x999",
+            lambda: run_stream(killed, batches(edges, s), **ck), kernels=CHUNK_KERNELS,
+            killed=True)
+        torn = sorted(p.name for p in Path(ckpt_dir).glob(".tmp_step_*"))
+        if killed.step != 2 * K or len(torn) != 1 or not torn[0].startswith(
+                f".tmp_step_{2 * K:010d}_"):
+            raise AssertionError(f"chaos_full b: killed at step {killed.step} with staging "
+                                 f"dirs {torn}; want step {2 * K} and the torn save's")
+        if plan_b.summary()["fired"] != {"checkpoint.write": 1, "engine.ingest": 4}:
+            raise AssertionError(f"chaos_full b: fired {plan_b.summary()['fired']}")
+        steps = CheckpointManager(ckpt_dir).steps()  # start-up sweep of the torn dir
+        resumed = engine()
+        rep_b, _, launches_b2, _ = drive(
+            "b resume", "", lambda: run_stream(resumed, batches(edges, s), **ck))
+    finally:
+        shutil.rmtree(ckpt_dir)
+    if steps != [K] or rep_b.resumed_from != K or rep_b.batches != len(range(0, m, s)) - K:
+        raise AssertionError(f"chaos_full b: checkpoints {steps}, resumed from "
+                             f"{rep_b.resumed_from} with {rep_b.batches} batches")
+    same("b", resumed, full["digest"])
+
+    # (c) a query before the stream caches the step-0 answer; a delay before
+    # the first chunk's ingest lets the producer queue the rest of the
+    # stream, so the report after chunk 1 finds a backlog and is served
+    # from the cache, aged K; later reports find the queue empty
+    eng = engine()
+    fresh = {0: eng.estimate().copy()}
+    served = []
+
+    def on_report(step, ests, seen, stale_age=0):
+        served.append((step, stale_age, ests.copy()))
+        if stale_age == 0:
+            fresh[step] = ests.copy()
+
+    rep_c, _, launches_c, _ = drive("c", "engine.ingest_chunk:delay@0~0.5", lambda: run_stream(
+        eng, batches(edges, s), report_every=1, on_report=on_report,
+        resilience=ResilienceConfig(retry=retry, backpressure_depth=1)))
+    same("c", eng, full["digest"])
+    stale = [(st, age) for st, age, _ in served if age > 0]
+    if not stale or rep_c.degraded_queries != len(stale) or \
+            rep_c.max_staleness != max(age for _, age in stale):
+        raise AssertionError(f"chaos_full c: served {[(st, a) for st, a, _ in served]}, "
+                             f"degraded {rep_c.degraded_queries}")
+    for st, age, ests in served:
+        if age > 0 and not np.array_equal(ests, fresh[st]):
+            raise AssertionError(f"chaos_full c: a stale answer for step {st} differs from "
+                                 "the fresh one")
+
+    # (d) the deletion burst of dynamic_full (b) through run_signed_stream
+    items = dynamic["burst_items"]
+    signed = engine()
+    rep_d, plan_d, launches_d, _ = drive(
+        "d", "engine.ingest:raise@3,prefetch.get:dup@4", lambda: run_signed_stream(
+            signed, iter(items), resilience=ResilienceConfig(retry=retry)),
+        kernels=BATCH_KERNELS)
+    same("d", signed, dynamic["burst_digest"])
+    n_ins = sum(1 for it in items if it[2] > 0)
+    if launches_d["multisearch_counts"] != 3 * n_ins + 1 or signed.diag.edges_deleted != s \
+            or (rep_d.retries, rep_d.duplicate_batches) != (1, 1):
+        raise AssertionError(f"chaos_full d: multisearch_counts launched "
+                             f"{launches_d['multisearch_counts']} times (want {3 * n_ins + 1}, "
+                             f"the deletion batch's one among them), retries {rep_d.retries}, "
+                             f"duplicates {rep_d.duplicate_batches}")
+
+    def timing(rep):
+        return {"seconds": rep.seconds, "edges_per_s": rep.edges_per_s}
+
+    # what the fault-free path pays: check_fault with no plan installed, and
+    # one with_retries around a call that does not fail, in host us a call
+    from repro_torch.engine.faults import active_fault_plan, check_fault, with_retries
+
+    if active_fault_plan() is not None:
+        raise AssertionError("chaos_full: a fault plan outlived its run")
+    n = 100_000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        check_fault("engine.ingest")
+    check_us = (time.perf_counter() - t0) * 1e6 / n
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with_retries(retry, int)
+    retry_us = (time.perf_counter() - t0) * 1e6 / n
+
+    emit({"phase": "chaos_full", "card": card, "r": FULL["r"], "s": s, "K": K, "m": m,
+          "full_edges_per_s": full["edges_per_s"],
+          "a": {"plan": spec_a, "retries": rep_a.retries,
+                "duplicate_batches": rep_a.duplicate_batches, "fired": got["fired"],
+                "launches": launches_a, **timing(rep_a), "state_equal": True},
+          "b": {"killed_at_step": 2 * K, "kill_host_s": kill_s, "resumed_from": K,
+                "resume_batches": rep_b.batches, "launches_kill": launches_b,
+                "launches_resume": launches_b2, **timing(rep_b), "state_equal": True},
+          "c": {"degraded_queries": rep_c.degraded_queries, "max_staleness": rep_c.max_staleness,
+                "queries": rep_c.queries, "served": [(st, a) for st, a, _ in served],
+                "launches": launches_c, **timing(rep_c), "state_equal": True},
+          "fault_free_host_us": {"check_fault": check_us, "with_retries": retry_us},
+          "d": {"retries": rep_d.retries, "duplicate_batches": rep_d.duplicate_batches,
+                "multisearch_counts": launches_d["multisearch_counts"], "launches": launches_d,
+                "seconds": rep_d.seconds, "edges_per_s": (m + s) / rep_d.seconds,
+                "state_equal": True},
+          "ok": True})
+
+
 def relabeled(edges: np.ndarray, tenant: int) -> np.ndarray:
     """Tenant ``tenant``'s stream: ``edges`` under a vertex relabeling drawn
     from the seed (the identity for tenant 0), an isomorphic graph with the
@@ -1916,7 +2170,24 @@ def phase_cli() -> None:
     local_line = next((ln for ln in lines if ln.startswith("local[tenant 0] ")), None)
     if local_line != local["cli"]["local_line"]:
         raise AssertionError(f"cli: {local_line!r} != JAX CLI {local['cli']['local_line']!r}")
-    emit({"phase": "cli", "estimate_line": est_line, "local_line": local_line, "ok": True})
+    # the golden arguments under a plan of transient faults at every seam:
+    # the JAX CLI's lines, and its diag file's blocks (the plan's log as a
+    # sorted list: the producer's entries interleave with the loop's)
+    res = json.loads((ROOT / "src/repro_torch/golden/resilience_small.json").read_text())
+    (ROOT / "build").mkdir(exist_ok=True)
+    diag_path = ROOT / "build" / "cli_resilience_diag.json"
+    diag_path.unlink(missing_ok=True)
+    lines = cli_lines([*res["args"], "--diag-json", str(diag_path)])
+    got = {p: next((ln for ln in lines if ln.startswith(p)), None) for p in res["lines"]}
+    if got != res["lines"]:
+        raise AssertionError(f"cli: resilience lines {got} != JAX CLI {res['lines']}")
+    diag = json.loads(diag_path.read_text())
+    diag["fault_plan"]["log"] = sorted(diag["fault_plan"]["log"])
+    for block in ("diag", "report", "fault_plan"):
+        if diag[block] != res[block]:
+            raise AssertionError(f"cli: diag {block} {diag[block]} != JAX CLI {res[block]}")
+    emit({"phase": "cli", "estimate_line": est_line, "local_line": local_line,
+          "resilience_lines": got, "diag_report": diag["report"], "ok": True})
 
 
 def main() -> int:
@@ -1934,7 +2205,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    phase_card()
+    card = phase_card()
     phase_build()
     phase_edges(dev)
     phase_golden(dev)
@@ -1944,6 +2215,7 @@ def main() -> int:
     full = phase_full(dev)
     local = phase_local_full(dev, full)
     dynamic = phase_dynamic_full(dev, full)
+    phase_chaos_full(dev, card, full, dynamic)
     tenants = phase_tenants_full(dev, full, local, dynamic)
     rows = phase_kernels(dev, full, local, dynamic)
     rows += bank_kernel_rows(dev, tenants)

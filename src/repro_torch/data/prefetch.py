@@ -1,11 +1,26 @@
 """Host-side prefetch and superbatch assembly (``repro.data.prefetch``).
 
 ``PrefetchQueue`` keeps a bounded queue of ready batches filled by a
-background thread, so host-side generation overlaps device work. An
-exception in the producer is re-raised in the consumer instead of looking
-like a clean end of stream. (The reference's straggler deadline, fault site
-and redelivery dedup belong to the resilience layer, which this port does
-not carry yet.)
+background thread, so host-side generation overlaps device work. The
+producer touches host numpy only, never CUDA. Its resilience, as in the
+reference:
+
+  * it tags every item with a sequence number, and ``get`` drops an item
+    whose number it has already handed out (``duplicate_drops``), so an
+    at-least-once source still yields exactly-once ingestion;
+  * it passes through the ``prefetch.get`` fault site once per source item
+    (``repro_torch.engine.faults``), riding out transient raises with its
+    ``RetryPolicy`` (``retries``) and enacting ``duplicate`` by enqueuing
+    the item twice (``redelivered``);
+  * with ``deadline_s`` a ``get`` that waits past the deadline returns the
+    last batch again as a stale stand-in, at most one per late item; the
+    late item is dropped when it lands (``late_drops``), and a stand-in
+    whose late item turns out to be the end of the stream is counted in
+    ``unmatched_standins``;
+  * an exception in the producer is re-raised by ``get`` instead of looking
+    like a clean end of stream;
+  * ``backlog()`` is the queue's depth, the service loops' backpressure
+    signal.
 
 ``stack_batches`` / ``superbatches`` assemble K ``(W, n_valid)`` batches into
 the unit ``TriangleCountEngine.ingest_chunk`` consumes.
@@ -18,46 +33,117 @@ from typing import Iterable, Iterator, Optional
 
 import numpy as np
 
-_DONE = object()
+_DONE = object()  # the end marker, distinct from any item (even None)
 
 
 class PrefetchQueue:
     """Bounded producer/consumer queue over an iterator. The producer thread
-    owns ``_error`` until it puts the end marker; ``get`` reads it only after
-    taking that marker (the queue orders the two)."""
+    owns ``redelivered``, ``retries``, ``done`` and ``_error``; the consumer
+    (``get``) owns the dedup and staleness state. ``get`` reads ``_error``
+    only after taking the end marker (the queue orders the two)."""
 
-    def __init__(self, source: Iterator, depth: int = 4):
+    def __init__(self, source: Iterator, depth: int = 4, deadline_s: Optional[float] = None,
+                 retry=None):
         self.q: queue.Queue = queue.Queue(maxsize=depth)
+        self.deadline_s = deadline_s
+        self.retry = retry  # Optional[repro_torch.engine.faults.RetryPolicy] for the source
+        self.backup = None
+        self.stale_steps = 0
+        self.late_drops = 0  # late items dropped on arrival after a stand-in
+        self.duplicate_drops = 0  # redelivered items dropped by sequence number
+        self.redelivered = 0  # items the producer enqueued twice
+        self.retries = 0  # transient source faults ridden out
+        self.unmatched_standins = 0  # stand-ins whose late item was the end of the stream
+        self.done = False
+        self._last_seq = -1  # newest sequence number handed out
+        self._drop_next = 0  # late items still to drop on arrival
+        self._ended = False  # the end marker was taken: later calls end at once
         self._error: Optional[BaseException] = None
         self._thread = threading.Thread(target=self._produce, args=(source,), daemon=True)
         self._thread.start()
 
     def _produce(self, source) -> None:
         try:
-            for item in source:
-                self.q.put(item)
+            for seq, item in enumerate(source):
+                kind = self._source_fault()
+                self.q.put((seq, item))
+                if kind == "duplicate":
+                    # an at-least-once source: the same sequence number again
+                    self.redelivered += 1
+                    self.q.put((seq, item))
         except BaseException as e:  # noqa: BLE001 -- re-raised in get()
             self._error = e
         finally:
+            self.done = True
             self.q.put(_DONE)
 
+    def _source_fault(self):
+        """The ``prefetch.get`` site, its transient raises ridden out with
+        the queue's RetryPolicy."""
+        # lazy: repro_torch.data sits below repro_torch.engine
+        from repro_torch.engine.faults import active_fault_plan, check_fault, with_retries
+
+        if active_fault_plan() is None:
+            return None
+
+        def count(attempt, exc):
+            self.retries += 1
+
+        return with_retries(self.retry, check_fault, "prefetch.get", on_retry=count)
+
     def get(self):
-        """The next item; StopIteration at the end of the source, or the
-        producer's exception if the source raised."""
-        item = self.q.get()
-        if item is _DONE:
-            self.q.put(_DONE)  # later calls see the end too
-            if self._error is not None:
-                raise self._error
-            raise StopIteration
-        return item
+        """``(item, stale)``: the next item, or on a deadline miss the last
+        one again with ``stale`` True. StopIteration at the end of the
+        source; the producer's exception if the source raised.
+
+        A stand-in takes the late item's place, so the late item is dropped
+        when it lands; until it has, ``get`` waits without a deadline rather
+        than echo the backup again, so each source item costs at most one
+        stand-in and the items delivered (real and stale) equal the source's
+        whenever the late item arrives."""
+        while not self._ended:
+            try:
+                timeout = self.deadline_s if not self._drop_next else None
+                entry = self.q.get(timeout=timeout)
+            except queue.Empty:
+                if self.backup is None:
+                    entry = self.q.get()  # the first item: nothing to stand in
+                else:
+                    self.stale_steps += 1
+                    self._drop_next += 1
+                    return self.backup, True
+            if entry is _DONE:
+                self._ended = True
+                self.unmatched_standins += self._drop_next
+                self._drop_next = 0
+                break
+            seq, item = entry
+            if seq <= self._last_seq:
+                self.duplicate_drops += 1
+                continue
+            self._last_seq = seq
+            if self._drop_next:
+                self._drop_next -= 1
+                self.late_drops += 1
+                continue
+            self.backup = item
+            return item, False
+        if self._error is not None:
+            raise self._error
+        raise StopIteration
 
     def __iter__(self):
+        """``(item, stale)`` pairs until the end of the source."""
         while True:
             try:
                 yield self.get()
             except StopIteration:
                 return
+
+    def backlog(self) -> int:
+        """Entries queued ahead of the consumer (the end marker counts
+        until it is taken): the service loops' backpressure signal."""
+        return self.q.qsize()
 
 
 def stack_batches(buf: list, batch_size: Optional[int] = None) -> tuple[np.ndarray, np.ndarray]:

@@ -1,5 +1,6 @@
-"""The streaming engine, its service loops and batch validation
-(counterpart of ``repro.engine``)."""
+"""The streaming engine, its service loops, and the resilience layer: batch
+validation, fault plans and bounded retries (counterpart of
+``repro.engine``)."""
 from repro_torch.engine.engine import (
     EngineConfig,
     EngineDiagnostics,
@@ -9,12 +10,22 @@ from repro_torch.engine.engine import (
 )
 from repro_torch.engine.faults import (
     DeadLetterBuffer,
+    FaultInjected,
+    FaultPlan,
+    FaultSpec,
     ResilienceConfig,
+    RetryPolicy,
+    fault_plan,
+    install_fault_plan,
+    parse_fault_plan,
     validate_batch,
     validate_signed_item,
+    with_retries,
 )
 from repro_torch.engine.service import StreamReport, run_signed_stream, run_stream
 
-__all__ = ["DeadLetterBuffer", "EngineConfig", "EngineDiagnostics", "ResilienceConfig",
-           "SnapshotMismatch", "StagedChunk", "StreamReport", "TriangleCountEngine",
-           "run_signed_stream", "run_stream", "validate_batch", "validate_signed_item"]
+__all__ = ["DeadLetterBuffer", "EngineConfig", "EngineDiagnostics", "FaultInjected",
+           "FaultPlan", "FaultSpec", "ResilienceConfig", "RetryPolicy", "SnapshotMismatch",
+           "StagedChunk", "StreamReport", "TriangleCountEngine", "fault_plan",
+           "install_fault_plan", "parse_fault_plan", "run_signed_stream", "run_stream",
+           "validate_batch", "validate_signed_item", "with_retries"]

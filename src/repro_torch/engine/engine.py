@@ -6,7 +6,8 @@ streams (one by default):
   * ``ingest(W)`` folds one batch into the estimators;
   * ``stage_chunk`` / ``ingest_chunk`` fold K batches in one update, with
     the next chunk's upload staged while the current one computes;
-  * ``estimate()`` answers the scheme's query, cached per ``step``;
+  * ``estimate()`` answers the scheme's query, cached per ``step``, and
+    ``cached_estimate()`` serves the newest cached answer without a query;
   * ``snapshot()`` / ``restore()`` round-trip the whole engine (estimators and
     RNG cursor) through host numpy arrays, in the JAX engine's flat-dict
     format, so a snapshot from either engine restores into the other
@@ -42,6 +43,15 @@ chunked path, as the reference does). Snapshots of such engines carry the
 ring at fixed capacity (``window_edges``, ``window_expiry``,
 ``window_len``), in the reference's format.
 
+Fault sites (``engine.faults``): ``engine.ingest`` first thing in
+``ingest``, ``engine.stage_chunk`` after ``stage_chunk``'s shape checks and
+before its upload, ``engine.ingest_chunk`` first thing in ``ingest_chunk``
+(before an unstaged chunk is staged), each before any state change, at the
+reference's points, so the same plan fires on the same calls in both
+packages. The ``single`` plan has no device-resident query, so
+``engine.estimate`` never fires here and ``estimate(timeout_s=)`` has
+nothing to bound, as in the reference.
+
 Window and decay over a bank of more than one tenant are not ported;
 asking for them raises ``NotImplementedError`` naming the ROADMAP item that
 brings them. The engine runs on the card unless ``device="cpu"``.
@@ -57,6 +67,7 @@ import torch
 from repro_torch import resolve_device, rng
 from repro_torch.core.schemes import EstimatorScheme, resolve_scheme
 from repro_torch.core.state import EstimatorState
+from repro_torch.engine.faults import check_fault
 from repro_torch.primitives.ingest import resolve_ingest_backend
 from repro_torch.primitives.search import resolve_multisearch_backend
 
@@ -131,14 +142,24 @@ class SnapshotMismatch(ValueError):
 
 @dataclass
 class EngineDiagnostics:
-    """The reference's ingest and dynamic-stream counters (host-side, not
-    part of the snapshot)."""
+    """The reference's rolling counters, field for field and in its order
+    (host-side, not part of the snapshot). The shardmap plan's overflow
+    counters and the device-query fallbacks stay 0 on ``single``."""
 
     batches_ingested: int = 0
     edges_ingested: int = 0  # max over tenants, per batch
+    overflow_batches: int = 0  # shardmap batches that reported bucket overflow
+    capacity_escalations: int = 0  # recompiles triggered by overflow
+    backend: str = ""
+    queries_answered: int = 0  # estimate() calls (any path)
+    query_cache_hits: int = 0  # answered from the per-step estimate cache
     delete_batches: int = 0  # explicit turnstile deletion batches applied
     edges_deleted: int = 0  # max-over-tenants valid edges in those batches
     window_expired: int = 0  # edges expired by the window/decay clock
+    pending_overflow_dropped: int = 0  # shardmap overflow scalars a restore discarded
+    query_fallbacks: int = 0  # device-path queries answered by the gather oracle
+    query_timeouts: int = 0  # ... of those, due to the per-query timeout
+    ckpt_corrupt_skipped: int = 0  # torn or corrupt checkpoints walked past on restore
 
 
 @dataclass
@@ -178,7 +199,7 @@ class TriangleCountEngine:
         self._search = resolve_multisearch_backend(config.multisearch, self.device)
         self._step = 0  # batches ingested so far: the RNG fold_in counter
         self._dyn_step = 0  # signed batches applied (inserts and deletions)
-        self.diag = EngineDiagnostics()
+        self.diag = EngineDiagnostics(backend="single")
         # the window/decay clock, which runs one tenant: insertions so far
         # (equal to m_seen, kept on the host so no expiry check waits on the
         # device), and the ring of live rows in insertion order: edges
@@ -191,6 +212,9 @@ class TriangleCountEngine:
         self._root_key = torch.stack(
             [rng.PRNGKey(seed, self.device) for seed in config.tenant_seeds()])
         self._state = self.scheme.init_state(config.r, self.device, config.n_tenants)
+        # per-step estimate cache {step: answer}: an ingest leaves the previous
+        # answer addressable for stale serving (cached_estimate); deletions and
+        # restores clear it, as they change the state without a step
         self._est_cache: dict[int, np.ndarray] = {}
         self._copy_stream = (
             torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
@@ -277,6 +301,7 @@ class TriangleCountEngine:
         broadcast to every tenant, or (T, <=s, 2), a batch per tenant;
         ``n_valid`` (a scalar or (T,)) overrides the inferred counts when W
         is pre-padded."""
+        check_fault("engine.ingest")  # before any conversion or state change
         Wb, nv = self._bank_batch(W, n_valid)
         keys = rng.fold_in(self._root_key, self._step)
         self._state = self.scheme.bulk_update(self._state, self._upload(Wb), self._counts(nv),
@@ -304,6 +329,7 @@ class TriangleCountEngine:
         if arr.shape != (T, K, s, 2):
             raise ValueError(f"chunk must be ({K}, {s}, 2) or ({T}, {K}, {s}, 2), "
                              f"got {arr.shape}")
+        check_fault("engine.stage_chunk")  # before the upload: nothing issued yet
         nv_host = np.full((T, K), s, np.int64) if n_valids is None else (
             np.asarray(n_valids, np.int64))
         try:  # a scalar counts for every batch, (K,) for every tenant
@@ -330,6 +356,7 @@ class TriangleCountEngine:
         window/decay mode the expiry flush runs once after the chunk, as in
         the reference, so a windowed chunked run equals the reference's at
         the same K (and per-batch ingest only in distribution)."""
+        check_fault("engine.ingest_chunk")  # before staging and any state change
         c = Ws if isinstance(Ws, StagedChunk) else self.stage_chunk(Ws, n_valids)
         if c.ready is not None:
             cur = torch.cuda.current_stream(self.device)
@@ -499,18 +526,38 @@ class TriangleCountEngine:
         self._win_expiry = self._win_expiry[keep]
 
     # -- queries -------------------------------------------------------------
-    def estimate(self) -> np.ndarray:
+    def estimate(self, *, gather: bool = False, timeout_s: Optional[float] = None) -> np.ndarray:
         """Per-tenant estimates, one query for the whole bank, cached per
         step: (T,) float64 for the scalar schemes (the median of means),
-        (T, n_vertices) float64 per-vertex counts for ``local``."""
-        cached = self._est_cache.get(self._step)
-        if cached is not None:
-            return cached
+        (T, n_vertices) float64 per-vertex counts for ``local``.
+
+        ``gather=True`` bypasses the cache and recomputes (the reference's
+        oracle query; on ``single`` the same program). ``timeout_s`` bounds
+        a sharded plan's device-resident query; ``single`` has none, so it
+        has no effect here. Counted in ``diag.queries_answered`` and, from
+        the cache, ``diag.query_cache_hits``."""
+        if not gather:
+            cached = self._est_cache.get(self._step)
+            if cached is not None:
+                self.diag.queries_answered += 1
+                self.diag.query_cache_hits += 1
+                return cached
         est = self.scheme.estimate(self._state, self.config.groups,
                                    backend=self._ingest_backend)
         out = est.to(torch.float64).cpu().numpy()
-        self._est_cache = {self._step: out}
+        self.diag.queries_answered += 1
+        if not gather:
+            self._est_cache = {self._step: out}
         return out
+
+    def cached_estimate(self) -> Optional[tuple[int, np.ndarray]]:
+        """The newest cached answer as ``(answer_step, estimates)``, or None
+        where nothing is cached; never queries. The service loops serve it
+        under backpressure, tagged with its age ``step - answer_step``."""
+        if not self._est_cache:
+            return None
+        s = max(self._est_cache)
+        return s, self._est_cache[s]
 
     def estimate_tenant(self, tenant: int = 0):
         """One tenant's estimate: a float for scalar schemes, else an array,

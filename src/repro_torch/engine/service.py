@@ -10,11 +10,27 @@ item's W is ``(s, 2)`` (every tenant) or ``(T, s, 2)`` (a batch per tenant)
 and its ``n_valid`` a scalar or ``(T,)``; the report's edges count the
 largest of the tenants' batches, as the reference's do.
 
-Validation: by default every batch is checked (``engine.faults``). A
-poisoned batch is quarantined to a dead-letter buffer with its source
-position, never ingested, and does not advance the RNG step. Superbatches
-are assembled from admitted batches only, so chunk boundaries are the
-reference's.
+Resilience (``engine.faults``, a ``ResilienceConfig``):
+
+  * by default every batch is validated; a poisoned batch is quarantined
+    to a dead-letter buffer with its source position, never ingested, and
+    does not advance the RNG step. Superbatches are assembled from admitted
+    batches only, so chunk boundaries are the reference's;
+  * ``ingest``, ``stage_chunk``, ``ingest_chunk`` and ``delete`` run under
+    ``with_retries`` at the reference's places, so a transient
+    ``FaultInjected`` is ridden out with bounded backoff (``retries``, with
+    the producer's retries added at the end); retry exhaustion and every
+    other exception propagate, since the last checkpoint is then the safe
+    state;
+  * the prefetch queue dedups redelivered items (``duplicate_batches``)
+    and, with ``deadline_s``, stands the last batch in for a late one
+    (``stale_batches``, and ``phantom_batches`` where the late item was the
+    end of the stream);
+  * report queries: when the prefetch backlog reaches
+    ``backpressure_depth`` the answer comes from the engine's estimate cache,
+    tagged with its age (``degraded_queries``, ``max_staleness``); a
+    callback that declares a ``stale_age`` keyword receives that age, and
+    ``answer_step`` is then the step the answer belongs to.
 
 Checkpoint / resume: with ``ckpt_dir`` the engine snapshot is saved every
 ``ckpt_every`` ingested batches and once at the end through
@@ -31,11 +47,11 @@ Signed streams (``run_signed_stream``): the same loop over ``(W, n_valid)``
 and ``(W, n_valid, sign)`` items, batch by batch, with deletions applied
 through ``engine.delete``. Every cursor is ``engine.dyn_step`` (signed
 batches applied), because deletions advance the stream and not the RNG
-step. Retries, fault sites, stale answers and deadlines come with ROADMAP
-A.9.
+step. Its resilience is ``run_stream``'s.
 """
 from __future__ import annotations
 
+import inspect
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -50,22 +66,35 @@ from repro_torch.engine.faults import (
     ResilienceConfig,
     validate_batch,
     validate_signed_item,
+    with_retries,
 )
 from repro_torch.train.checkpoint import CheckpointCorrupt, CheckpointManager, config_hash
 
 QueryCallback = Callable[[int, np.ndarray, np.ndarray], None]
+# (answer_step, per-tenant estimates, per-tenant edges_seen) -> None; a
+# callback that also declares a ``stale_age`` keyword receives 0 for a fresh
+# answer and the answer's age in batches for one served from the cache
 
 
 @dataclass
 class StreamReport:
-    """What one ``run_stream`` call did."""
+    """What one ``run_stream`` call did (the reference's fields, and
+    ``ckpt_corrupt_skipped``, which the engine's diag counts too)."""
 
     batches: int = 0  # batches ingested by this call (not the resumed ones)
     edges: int = 0  # max over tenants of the edges ingested by this call
     seconds: float = 0.0
     resumed_from: int = 0  # engine step (dyn_step, signed) restored from a checkpoint, 0 if fresh
+    stale_batches: int = 0  # stand-ins for batches late past the deadline
+    phantom_batches: int = 0  # stand-ins whose late batch was the end of the stream
+    queries: int = 0  # report queries answered mid-stream
+    retries: int = 0  # attempts retried after transient faults (loop and producer)
     ckpt_corrupt_skipped: int = 0  # torn or corrupt checkpoints walked past
     quarantined_batches: int = 0  # invalid batches diverted to dead letters
+    duplicate_batches: int = 0  # redelivered batches dropped by sequence number
+    degraded_queries: int = 0  # report queries answered from the stale cache
+    max_staleness: int = 0  # the oldest stale answer's age, in batches
+    query_fallbacks: int = 0  # device queries that fell back to the gather oracle
     dead_letters: Optional[DeadLetterBuffer] = field(default=None, repr=False)
 
     @property
@@ -77,8 +106,9 @@ def _restore_latest(engine: TriangleCountEngine, ckpt_dir: Optional[str], rep: S
                     ) -> tuple[Optional[CheckpointManager], Optional[dict]]:
     """Open ``ckpt_dir`` and restore the newest checkpoint that verifies into
     ``engine``, walking back past torn or corrupt ones (counted in
-    ``rep.ckpt_corrupt_skipped``). Returns (manager or None, the restored
-    checkpoint's manifest or None).
+    ``rep.ckpt_corrupt_skipped`` and, as the reference counts them, in
+    ``engine.diag.ckpt_corrupt_skipped``). Returns (manager or None, the
+    restored checkpoint's manifest or None).
 
     Keys the snapshot grew over time (``scheme``, then ``dyn_step``) are
     dropped from the template where the saved manifest predates them;
@@ -89,11 +119,16 @@ def _restore_latest(engine: TriangleCountEngine, ckpt_dir: Optional[str], rep: S
         return None, None
     ckpt = CheckpointManager(ckpt_dir, async_save=True)
     full = engine.snapshot()
+
+    def skipped() -> None:
+        rep.ckpt_corrupt_skipped += 1
+        engine.diag.ckpt_corrupt_skipped += 1
+
     for step in reversed(ckpt.steps()):
         try:
             saved = ckpt.manifest(step)
         except CheckpointCorrupt:
-            rep.ckpt_corrupt_skipped += 1
+            skipped()
             continue
         template = dict(full)
         if saved is not None and "keys" in saved:
@@ -105,7 +140,7 @@ def _restore_latest(engine: TriangleCountEngine, ckpt_dir: Optional[str], rep: S
             restored, manifest = ckpt.restore(template, step=step)
         except CheckpointCorrupt:
             # torn or bit-flipped: walk back to the previous one, never restore it
-            rep.ckpt_corrupt_skipped += 1
+            skipped()
             continue
         except (KeyError, ValueError) as e:
             raise SnapshotMismatch(
@@ -124,6 +159,132 @@ def _restore_latest(engine: TriangleCountEngine, ckpt_dir: Optional[str], rep: S
     return ckpt, None
 
 
+def _wants_stale_age(cb: Optional[QueryCallback]) -> bool:
+    if cb is None:
+        return False
+    try:
+        return "stale_age" in inspect.signature(cb).parameters
+    except (TypeError, ValueError):  # builtins and C callables
+        return False
+
+
+def _answer_query(engine: TriangleCountEngine, pf: PrefetchQueue, res: ResilienceConfig,
+                  rep: StreamReport, position: int) -> tuple[int, np.ndarray, int]:
+    """One report query: ``(answer_step, estimates, stale_age)``. At a
+    prefetch backlog of ``res.backpressure_depth`` the answer comes from the
+    engine's cache, stale and tagged with its age in batches, so the query
+    takes no device time from an ingest that is already behind; otherwise
+    it is a fresh ``engine.estimate``."""
+    if res.backpressure_depth and pf.backlog() >= res.backpressure_depth:
+        cached = engine.cached_estimate()
+        if cached is not None:
+            astep, ests = cached
+            age = engine.step - astep
+            if age > 0:
+                rep.degraded_queries += 1
+                rep.max_staleness = max(rep.max_staleness, age)
+                return astep, ests, age
+            return position, ests, 0  # the cache is current: a plain hit
+    return position, engine.estimate(timeout_s=res.query_timeout_s), 0
+
+
+class _Loop:
+    """What ``run_stream`` and ``run_signed_stream`` share: the resume, the
+    prefetch queue, the retry counter, reports, checkpoints and the closing
+    accounting. ``cursor`` names the engine's position property (``step``
+    or ``dyn_step``)."""
+
+    def __init__(self, engine, batch_iter, res, *, ckpt_dir, ckpt_every, report_every,
+                 on_report, prefetch_depth, deadline_s, cursor):
+        self.engine, self.res, self.cursor = engine, res, cursor
+        self.ckpt_every, self.report_every, self.on_report = ckpt_every, report_every, on_report
+        self.rep = StreamReport(dead_letters=DeadLetterBuffer(res.dead_letter_capacity))
+        self.ckpt, manifest = _restore_latest(engine, ckpt_dir, self.rep)
+        if manifest is not None:
+            self.rep.resumed_from = self.position()
+        self.pf = PrefetchQueue(iter(batch_iter), depth=prefetch_depth, deadline_s=deadline_s,
+                                retry=res.retry)
+        self.meta = {"r": engine.config.r, "batch": engine.config.batch_size,
+                     "tenants": engine.config.n_tenants}
+        # resume position in SOURCE items (ingested + quarantined); a
+        # checkpoint without source_pos falls back to the cursor, exact when
+        # nothing was quarantined
+        self.skip = self.position()
+        if manifest is not None and "source_pos" in manifest:
+            self.skip = int(manifest["source_pos"])
+        self.committed = self.skip  # source position of the newest ingested batch
+        self.fallbacks0 = engine.diag.query_fallbacks
+        self.wants_age = _wants_stale_age(on_report)
+        self.t0 = time.perf_counter()
+
+    def position(self) -> int:
+        return getattr(self.engine, self.cursor)
+
+    def count_retry(self, attempt, exc) -> None:
+        self.rep.retries += 1
+
+    def call(self, fn, *args):
+        """``fn(*args)`` under the configured retries."""
+        return with_retries(self.res.retry, fn, *args, on_retry=self.count_retry)
+
+    def items(self):
+        """``(source position, item)`` pairs past the resume point."""
+        seen = 0
+        while True:
+            try:
+                item, stale = self.pf.get()
+            except StopIteration:
+                return
+            self.rep.stale_batches += int(stale)
+            seen += 1
+            if seen > self.skip:
+                yield seen, item
+
+    def quarantine(self, reason: Optional[str], pos: int, payload) -> bool:
+        """Quarantine the item where ``reason`` is not None; True if it was."""
+        if reason is None:
+            return False
+        self.rep.quarantined_batches += 1
+        self.rep.dead_letters.put(reason, pos, payload)
+        return True
+
+    def after(self, n_batches: int, n_edges: int) -> None:
+        """Accounting, the report query and the periodic checkpoint after an
+        ingest of ``n_batches`` batches."""
+        rep = self.rep
+        rep.batches += n_batches
+        rep.edges += n_edges
+        pos = self.position()
+        if self.report_every and self.on_report and pos % self.report_every == 0:
+            astep, ests, age = _answer_query(self.engine, self.pf, self.res, rep, pos)
+            if self.wants_age:
+                self.on_report(astep, ests, self.engine.edges_seen(), stale_age=age)
+            else:
+                self.on_report(astep, ests, self.engine.edges_seen())
+            rep.queries += 1
+        if self.ckpt and self.ckpt_every and rep.batches % self.ckpt_every == 0:
+            self.save()
+
+    def save(self) -> None:
+        self.ckpt.save(self.position(), self.engine.snapshot(),
+                       {"config_hash": config_hash(self.meta), **self.meta,
+                        "source_pos": self.committed})
+
+    def finish(self) -> StreamReport:
+        rep, pf = self.rep, self.pf
+        self.engine.sync()
+        rep.seconds = time.perf_counter() - self.t0
+        rep.phantom_batches = pf.unmatched_standins
+        rep.duplicate_batches = pf.duplicate_drops
+        rep.retries += pf.retries
+        rep.query_fallbacks = self.engine.diag.query_fallbacks - self.fallbacks0
+        if self.ckpt:
+            self.ckpt.wait()
+            self.save()
+            self.ckpt.wait()
+        return rep
+
+
 def run_stream(
     engine: TriangleCountEngine,
     batch_iter: Iterable,
@@ -133,6 +294,7 @@ def run_stream(
     report_every: int = 0,
     on_report: Optional[QueryCallback] = None,
     prefetch_depth: int = 4,
+    deadline_s: Optional[float] = None,
     resilience: Optional[ResilienceConfig] = None,
 ) -> StreamReport:
     """Drain ``batch_iter`` ((W, n_valid) pairs) into ``engine``.
@@ -142,88 +304,58 @@ def run_stream(
     every ``ckpt_every`` batches (0: only at the end). Reports
     (``on_report(step, estimates, edges_seen)`` every ``report_every``
     batches) and checkpoints land at chunk granularity when chunking.
-    ``resilience`` (default: validation on) controls the quarantine. The
-    clock stops after the device has finished."""
+    ``deadline_s`` (default: none, since an estimator stream must not echo
+    batches unless asked to) lets a late batch be stood in for by the last
+    one. ``resilience`` (default: validation on, ``FaultInjected``-only
+    retries, no backpressure) controls quarantine, retries and stale
+    answers. The clock stops after the device has finished."""
     res = resilience if resilience is not None else ResilienceConfig()
-    rep = StreamReport(dead_letters=DeadLetterBuffer(res.dead_letter_capacity))
-    ckpt, manifest = _restore_latest(engine, ckpt_dir, rep)
-    if manifest is not None:
-        rep.resumed_from = engine.step
-    pf = PrefetchQueue(iter(batch_iter), depth=prefetch_depth)
-    meta = {"r": engine.config.r, "batch": engine.config.batch_size,
-            "tenants": engine.config.n_tenants}
-    # resume position in SOURCE items (ingested + quarantined); a checkpoint
-    # without source_pos falls back to engine.step, exact when nothing was
-    # quarantined
-    skip = engine.step
-    if manifest is not None and "source_pos" in manifest:
-        skip = int(manifest["source_pos"])
+    loop = _Loop(engine, batch_iter, res, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
+                 report_every=report_every, on_report=on_report,
+                 prefetch_depth=prefetch_depth, deadline_s=deadline_s, cursor="step")
     K = engine.config.chunk_size
-    t0 = time.perf_counter()
-    # committed: source position of the newest INGESTED batch. Batches taken
-    # but still buffered (superbatch assembly, a staged chunk) are not
-    # counted, so a checkpoint never skips a batch that was not ingested.
-    committed = skip
-    pend: deque = deque()  # source positions of admitted, not yet ingested batches
-
-    def save() -> None:
-        ckpt.save(engine.step, engine.snapshot(),
-                  {"config_hash": config_hash(meta), **meta, "source_pos": committed})
+    # positions of admitted batches not yet ingested: a batch taken but still
+    # buffered (superbatch assembly, a staged chunk) is not committed, so a
+    # checkpoint never skips a batch that was not ingested
+    pend: deque = deque()
 
     def after_ingest(n_batches: int, n_edges: int) -> None:
-        nonlocal committed
         for _ in range(n_batches):
             if pend:
-                committed = pend.popleft()
-        rep.batches += n_batches
-        rep.edges += n_edges
-        if report_every and on_report and engine.step % report_every == 0:
-            on_report(engine.step, engine.estimate(), engine.edges_seen())
-        if ckpt and ckpt_every and rep.batches % ckpt_every == 0:
-            save()
+                loop.committed = pend.popleft()
+        loop.after(n_batches, n_edges)
 
     def admitted():
-        """The validated post-skip batches; each one's source position waits
-        in ``pend`` until the ingest that contains it."""
-        for pos, (W, nv) in enumerate(pf, start=1):
-            if pos <= skip:
+        for pos, (W, nv) in loop.items():
+            if res.validate and loop.quarantine(
+                    validate_batch(W, nv, max_vertex=res.max_vertex), pos, (W, nv)):
                 continue
-            if res.validate:
-                reason = validate_batch(W, nv, max_vertex=res.max_vertex)
-                if reason is not None:
-                    rep.quarantined_batches += 1
-                    rep.dead_letters.put(reason, pos, (W, nv))
-                    continue
             pend.append(pos)
             yield W, nv
 
     if K <= 1:
         for W, nv in admitted():
-            engine.ingest(W, nv)
+            loop.call(engine.ingest, W, nv)
             after_ingest(1, int(np.asarray(nv).max()))
     else:
+        # dispatch the staged chunk, then stage the next one: its upload
+        # overlaps the dispatched chunk's compute
         pending = None
         for kind, payload in superbatches(admitted(), K, engine.config.batch_size):
             if pending is not None:
-                engine.ingest_chunk(pending)
+                loop.call(engine.ingest_chunk, pending)
                 after_ingest(K, pending.edges)
                 pending = None
             if kind == "chunk":
-                pending = engine.stage_chunk(*payload)
-            else:
+                pending = loop.call(engine.stage_chunk, *payload)
+            else:  # the ragged tail, batch by batch
                 W, nv = payload
-                engine.ingest(W, nv)
+                loop.call(engine.ingest, W, nv)
                 after_ingest(1, int(np.asarray(nv).max()))
         if pending is not None:
-            engine.ingest_chunk(pending)
+            loop.call(engine.ingest_chunk, pending)
             after_ingest(K, pending.edges)
-    engine.sync()
-    rep.seconds = time.perf_counter() - t0
-    if ckpt:
-        ckpt.wait()
-        save()
-        ckpt.wait()
-    return rep
+    return loop.finish()
 
 
 def run_signed_stream(
@@ -235,59 +367,31 @@ def run_signed_stream(
     report_every: int = 0,
     on_report: Optional[QueryCallback] = None,
     prefetch_depth: int = 4,
+    deadline_s: Optional[float] = None,
     resilience: Optional[ResilienceConfig] = None,
 ) -> StreamReport:
     """Drain a signed batch iterator (``graph_stream.signed_batches``) into
     ``engine``, one batch at a time: inserts through ``engine.ingest``,
-    deletions (sign -1) through ``engine.delete``. Checkpoints are saved
-    under ``engine.dyn_step`` every ``ckpt_every`` applied batches and at the
-    end, with ``source_pos`` the source items consumed; a resume restores
-    the newest one that verifies and skips that many items. Reports land
-    where ``dyn_step`` is a multiple of ``report_every``. Chunked ingest does
-    not apply here (deletions break insert runs anywhere); drive
-    ``engine.ingest_signed_stream`` for that."""
+    deletions (sign -1) through ``engine.delete``, each under the retries.
+    Checkpoints are saved under ``engine.dyn_step`` every ``ckpt_every``
+    applied batches and at the end, with ``source_pos`` the source items
+    consumed; a resume restores the newest one that verifies and skips that
+    many items. Reports land where ``dyn_step`` is a multiple of
+    ``report_every``. Chunked ingest does not apply here (deletions break
+    insert runs anywhere); drive ``engine.ingest_signed_stream`` for
+    that."""
     res = resilience if resilience is not None else ResilienceConfig()
-    rep = StreamReport(dead_letters=DeadLetterBuffer(res.dead_letter_capacity))
-    ckpt, manifest = _restore_latest(engine, ckpt_dir, rep)
-    if manifest is not None:
-        rep.resumed_from = engine.dyn_step
-    pf = PrefetchQueue(iter(batch_iter), depth=prefetch_depth)
-    meta = {"r": engine.config.r, "batch": engine.config.batch_size,
-            "tenants": engine.config.n_tenants}
-    skip = engine.dyn_step  # signed items already folded into the state
-    if manifest is not None and "source_pos" in manifest:
-        skip = int(manifest["source_pos"])
-    t0 = time.perf_counter()
-    committed = skip  # source position of the newest applied item
-
-    def save() -> None:
-        ckpt.save(engine.dyn_step, engine.snapshot(),
-                  {"config_hash": config_hash(meta), **meta, "source_pos": committed})
-
-    for pos, item in enumerate(pf, start=1):
-        if pos <= skip:
+    loop = _Loop(engine, batch_iter, res, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
+                 report_every=report_every, on_report=on_report,
+                 prefetch_depth=prefetch_depth, deadline_s=deadline_s, cursor="dyn_step")
+    for pos, item in loop.items():
+        if res.validate and loop.quarantine(
+                validate_signed_item(item, max_vertex=res.max_vertex), pos, item):
             continue
-        if res.validate:
-            reason = validate_signed_item(item, max_vertex=res.max_vertex)
-            if reason is not None:
-                rep.quarantined_batches += 1
-                rep.dead_letters.put(reason, pos, item)
-                continue
         if len(item) > 2 and int(item[2]) < 0:
-            engine.delete(item[0], item[1])
+            loop.call(engine.delete, item[0], item[1])
         else:
-            engine.ingest(item[0], item[1])
-        committed = pos
-        rep.batches += 1
-        rep.edges += int(np.max(np.asarray(item[1])))
-        if report_every and on_report and engine.dyn_step % report_every == 0:
-            on_report(engine.dyn_step, engine.estimate(), engine.edges_seen())
-        if ckpt and ckpt_every and rep.batches % ckpt_every == 0:
-            save()
-    engine.sync()
-    rep.seconds = time.perf_counter() - t0
-    if ckpt:
-        ckpt.wait()
-        save()
-        ckpt.wait()
-    return rep
+            loop.call(engine.ingest, item[0], item[1])
+        loop.committed = pos
+        loop.after(1, int(np.max(np.asarray(item[1]))))
+    return loop.finish()

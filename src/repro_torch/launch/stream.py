@@ -23,6 +23,17 @@ live, ``--decay D`` gives each a lifetime of mean D insertions. The
 ``dynamic:`` line counts deletion batches and expired edges, and the truth
 behind ``estimate:`` (or ``local[tenant 0]``) is the live edge set.
 
+Resilience, as in the JAX CLI: ``--fault-plan`` installs a deterministic
+fault plan (``site:kind@AT[xTIMES][~DELAY_S]``, comma-joined; it prints
+``fault plan installed: ..``), ``--max-retries``/``--retry-base`` set the
+bounded backoff, ``--backpressure``, ``--query-timeout`` and
+``--no-validate`` the rest of the ``ResilienceConfig``. A ``resilience: ..``
+line follows ``processed`` whenever a retry, quarantine, duplicate, stale
+answer, query fallback or corrupt checkpoint happened, and ``--diag-json``
+writes the engine's diag, the report's counters and the plan's summary. A
+fault that outlasts the retries ends the run with a traceback and a
+non-zero exit.
+
   PYTHONPATH=src python -m repro_torch.launch.stream --graph planted \\
       --triangles 300 --edges 20000 --nodes 30000 --estimators 65536 \\
       --batch 4096 --chunk 4              # on the GPU
@@ -34,10 +45,15 @@ behind ``estimate:`` (or ``local[tenant 0]``) is the live edge set.
       --nodes 30 --edges 200 --estimators 4096 --batch 16 --deletions 0.2
   PYTHONPATH=src python -m repro_torch.launch.stream --device cpu --graph ba \\
       --nodes 500 --estimators 4096 --batch 512 --tenants 3
+  PYTHONPATH=src python -m repro_torch.launch.stream --device cpu --graph ba \\
+      --nodes 500 --estimators 4096 --batch 512 --chunk 2 --retry-base 0.001 \\
+      --fault-plan engine.ingest_chunk:raise@1,prefetch.get:dup@2 --diag-json diag.json
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
 import os
 import sys
 import tempfile
@@ -54,7 +70,17 @@ from repro_torch.data.graph_stream import (
     planted_triangle_stream,
     signed_batches,
 )
-from repro_torch.engine import EngineConfig, TriangleCountEngine, run_signed_stream, run_stream
+from repro_torch.engine import (
+    EngineConfig,
+    ResilienceConfig,
+    RetryPolicy,
+    TriangleCountEngine,
+    install_fault_plan,
+    parse_fault_plan,
+    run_signed_stream,
+    run_stream,
+)
+from repro_torch.engine.faults import active_fault_plan
 
 
 def make_stream(args):
@@ -102,6 +128,92 @@ def add_dynamic_flags(ap) -> None:
     ap.add_argument("--decay", type=float, default=0.0,
                     help="exponential decay: mean edge lifetime in insertions, > 1 "
                          "(0 = off; excludes --window)")
+
+
+def add_resilience_flags(ap) -> None:
+    """The chaos and resilience flags, the JAX CLI's."""
+    ap.add_argument("--fault-plan", default="",
+                    help="inject deterministic faults: comma-joined "
+                         "site:kind@AT[xTIMES][~DELAY_S] specs, e.g. "
+                         "'engine.ingest:raise@3x2,checkpoint.write:torn@1' "
+                         "(sites and kinds: repro_torch.engine.faults)")
+    ap.add_argument("--max-retries", type=int, default=3,
+                    help="bounded retries (exponential backoff + jitter) for "
+                         "transient source, ingest and stage faults")
+    ap.add_argument("--retry-base", type=float, default=0.02,
+                    help="base backoff seconds (doubles per attempt)")
+    ap.add_argument("--query-timeout", type=float, default=0.0,
+                    help="per-query bound on a sharded plan's device-resident "
+                         "estimate (no effect on the single plan; 0 = unbounded)")
+    ap.add_argument("--backpressure", type=int, default=0,
+                    help="answer report queries from the (stale, tagged) estimate "
+                         "cache when the prefetch backlog reaches this depth "
+                         "(0 = always query fresh)")
+    ap.add_argument("--no-validate", action="store_true",
+                    help="skip batch validation and quarantine (trusted source)")
+    ap.add_argument("--diag-json", default="",
+                    help="write the engine's diag and the resilience counters to "
+                         "this JSON file at exit")
+
+
+def resilience_from_args(args) -> ResilienceConfig:
+    return ResilienceConfig(
+        retry=RetryPolicy(max_retries=args.max_retries, base_s=args.retry_base, seed=args.seed),
+        validate=not args.no_validate,
+        query_timeout_s=args.query_timeout or None,
+        backpressure_depth=args.backpressure,
+    )
+
+
+def install_cli_fault_plan(args) -> None:
+    """Parse and install ``--fault-plan`` process-wide (no-op when empty)."""
+    plan = parse_fault_plan(args.fault_plan, seed=args.seed)
+    if plan is not None:
+        install_fault_plan(plan)
+        print(f"fault plan installed: {args.fault_plan}", flush=True)
+
+
+def write_diag_json(path: str, engine, rep) -> None:
+    """The engine's diag, the report's resilience counters and the installed
+    plan's summary as one JSON file, with the JAX CLI's keys."""
+    if not path:
+        return
+    plan = active_fault_plan()
+    payload = {
+        "diag": dataclasses.asdict(engine.diag),
+        "report": {
+            "batches": rep.batches,
+            "edges": rep.edges,
+            "resumed_from": rep.resumed_from,
+            "retries": rep.retries,
+            "quarantined_batches": rep.quarantined_batches,
+            "duplicate_batches": rep.duplicate_batches,
+            "degraded_queries": rep.degraded_queries,
+            "max_staleness": rep.max_staleness,
+            "query_fallbacks": rep.query_fallbacks,
+            "dead_letter_reasons": rep.dead_letters.reasons() if rep.dead_letters else [],
+        },
+        "fault_plan": plan.summary() if plan else None,
+    }
+    with open(path, "w") as f:
+        json.dump(payload, f, indent=2)
+    print(f"diag written to {path}", flush=True)
+
+
+def print_resilience_summary(engine, rep) -> None:
+    """One line of resilience accounting where anything happened (silent on
+    the happy path)."""
+    d = engine.diag
+    if not any((rep.retries, rep.quarantined_batches, rep.duplicate_batches,
+                rep.degraded_queries, rep.query_fallbacks, d.ckpt_corrupt_skipped)):
+        return
+    print(f"resilience: retries={rep.retries} "
+          f"quarantined={rep.quarantined_batches} "
+          f"duplicates={rep.duplicate_batches} "
+          f"degraded_queries={rep.degraded_queries} "
+          f"(max_staleness={rep.max_staleness}) "
+          f"query_fallbacks={rep.query_fallbacks} "
+          f"ckpt_corrupt_skipped={d.ckpt_corrupt_skipped}", flush=True)
 
 
 def make_dynamic_stream(args, edges):
@@ -155,6 +267,7 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     add_scheme_flags(ap)
     add_dynamic_flags(ap)
+    add_resilience_flags(ap)
     ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
                                                        "repro_stream_ckpt"),
                     help="checkpoint directory, used where --ckpt-every is set; the "
@@ -179,6 +292,7 @@ def main(argv=None) -> None:
               f"tau_live={tau}", flush=True)
     else:
         print(f"stream: m={len(edges)} tau={tau}", flush=True)
+    install_cli_fault_plan(args)
     engine = TriangleCountEngine(EngineConfig(
         r=args.estimators, batch_size=args.batch, groups=args.groups,
         n_tenants=args.tenants, seeds=tuple(args.seed + t for t in range(args.tenants)),
@@ -186,7 +300,7 @@ def main(argv=None) -> None:
         device=args.device, **scheme_args(args),
     ))
     ckpt = {"ckpt_dir": args.ckpt_dir if args.ckpt_every else None,
-            "ckpt_every": args.ckpt_every}
+            "ckpt_every": args.ckpt_every, "resilience": resilience_from_args(args)}
     if args.deletions:
         # deletion batches break insert runs, so the signed loop drives it
         rep = run_signed_stream(engine, signed_batches(stream, args.batch), **ckpt)
@@ -196,6 +310,8 @@ def main(argv=None) -> None:
     print(f"processed {rep.edges} edges in {dt:.2f}s "
           f"({rep.edges / dt / 1e6:.2f}M edges/s, r={args.estimators}, "
           f"device={engine.device})", flush=True)
+    print_resilience_summary(engine, rep)
+    write_diag_json(args.diag_json, engine, rep)
     if dynamic:
         print(f"dynamic: deletes={engine.diag.delete_batches} batches "
               f"expired={engine.diag.window_expired} edges "

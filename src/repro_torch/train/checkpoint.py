@@ -18,8 +18,13 @@ keep-k, optionally asynchronous (``repro.train.checkpoint`` without jax).
 Arrays are named as ``jax.tree_util.tree_flatten_with_path`` names a tree
 of dicts (``"['chi']"``, nested entries joined by ``/``), so a checkpoint
 directory written by either package restores in the other. One host writes
-the one shard. The reference's ``checkpoint.write`` fault site comes with
-ROADMAP A.9.
+the one shard.
+
+``checkpoint.write`` is a fault site (``repro_torch.engine.faults``) at the
+entry of the writer: ``raise`` fails the save (in async mode on the next
+``wait()``), and ``torn_write`` stops the writer between the shard write and
+the atomic rename, so the staging directory leaks and no manifest becomes
+visible, as a kill mid-write would leave it.
 """
 from __future__ import annotations
 
@@ -37,6 +42,13 @@ import numpy as np
 class CheckpointCorrupt(RuntimeError):
     """A checkpoint's data does not match its manifest (torn or corrupt
     write), or its files cannot be read at all."""
+
+
+def _check_fault(site: str):
+    # lazy: repro_torch.train sits below repro_torch.engine
+    from repro_torch.engine.faults import check_fault
+
+    return check_fault(site)
 
 
 def _name(prefix: str, key) -> str:
@@ -123,6 +135,7 @@ class CheckpointManager:
             self._save_error = e
 
     def _write(self, step: int, named: dict, meta: dict) -> None:
+        kind = _check_fault("checkpoint.write")
         final = self.dir / f"step_{step:010d}"
         tmp = self.dir / f".tmp_step_{step:010d}_{time.time_ns()}"
         tmp.mkdir(parents=True, exist_ok=True)
@@ -136,6 +149,8 @@ class CheckpointManager:
             **meta,
         }
         (tmp / "manifest.json").write_text(json.dumps(manifest))
+        if kind == "torn_write":
+            return  # the staging dir leaks; no manifest becomes visible
         if final.exists():
             shutil.rmtree(final)
         tmp.rename(final)  # atomic: a manifest is visible only in complete dirs

@@ -169,10 +169,10 @@ def test_prefetch_reraises_producer_error():
         raise KeyError("bad tail")
 
     q = tpf.PrefetchQueue(source(), depth=1)
-    assert [q.get(), q.get()] == [1, 2]
+    assert [q.get(), q.get()] == [(1, False), (2, False)]
     with pytest.raises(KeyError, match="bad tail"):
         q.get()
-    assert list(tpf.PrefetchQueue(iter(range(5)), depth=2)) == [0, 1, 2, 3, 4]
+    assert list(tpf.PrefetchQueue(iter(range(5)), depth=2)) == [(i, False) for i in range(5)]
 
 
 def test_cli_prints_the_output_contract(capsys):

@@ -250,6 +250,7 @@ def test_corrupt_newest_checkpoint_is_walked_past(tmp_path):
     eng = _port()
     rep = run_stream(eng, batches(edges, S), ckpt_dir=str(ck), ckpt_every=3)
     assert rep.ckpt_corrupt_skipped == 1 and rep.resumed_from == 6
+    assert eng.diag.ckpt_corrupt_skipped == 1  # counted where the reference counts it
     assert state_sha256(eng.snapshot()) == state_sha256(straight.snapshot())
     # and the JAX loop walks past the same corruption in a port-written directory
     ck2 = tmp_path / "ck2"
