@@ -29,7 +29,9 @@ Phases, each of which raises on failure (nothing is caught):
              own randomness, stream lengths above 2^32 and at 0, the fold-in
              counter across its 32-bit wrap, empty batches, r off its
              512-estimator tile, and 2s and s below, at and above its
-             1024-key samples), equal
+             1024-key samples; and at an estimator offset e0, a shard's,
+             one tenant and a bank of 2, whose shards concatenate to one
+             full-r call, and e0 near the top of the 32-bit counter), equal
              under each kernel's contract;
   golden     the kernel path on a small chunked stream with a ragged tail
              reproduces the JAX reference's final-state sha256 and estimate
@@ -118,6 +120,24 @@ Phases, each of which raises on failure (nothing is caught):
              aggregate edges/s, peak device bytes, and a bank chunk's and a
              bank per-batch update's time, device busy time and device
              operations beside one tenant's;
+  plans_full  the sharded plans at the same width on one-process meshes
+             of 4 shards, all on this card (host_devices=4), kernel route:
+             (a) pjit_independent and pjit_coordinated on estimators=4,
+             batch by batch, each ending in phase full's state; (b) shardmap
+             on estimators=4 at capacity factor 2.0: no overflow, equal to
+             its plain route, rel.err within 5%, the device-resident query
+             equal to the gather oracle; (c) banked_pjit_coordinated on
+             tenants=2,estimators=2 over tenants_full's four streams,
+             chunked (fused_ingest at e0 = r/2 on two shards): each tenant
+             equals tenants_full (a); (d) local on banked_pjit_independent
+             over tenants=4: the per-vertex device query equals the oracle
+             and tenants_full (b); (e) (c)'s snapshot after chunk 1 restored
+             into single and tenants=4 engines, each run on to (c)'s end;
+             (f) the device query's fallbacks under a fault and a timeout.
+             It records host seconds, edges/s, peak bytes, an update's
+             device-busy ms and shardmap's routing-copy share, and the
+             kernels-line row of fused_ingest on (c)'s shard at e0 = r/2
+             beside its time at e0 = 0;
   kernels    each kernel and its plain version at the main path's full-size
              shapes: equal, and timed with CUDA events beside its bound and,
              where one PyTorch call computes the same function, that call;
@@ -145,7 +165,10 @@ Phases, each of which raises on failure (nothing is caught):
   cli        python -m repro_torch.launch.stream prints the golden CLI lines
              (global and local), and under the golden --fault-plan the JAX
              CLI's estimate:, resilience: and fault plan installed: lines
-             and --diag-json blocks (golden/resilience_small.json).
+             and --diag-json blocks (golden/resilience_small.json), and for a
+             bank of 4 on --mesh tenants=2,estimators=2 --host-devices 4 the
+             JAX CLI's mesh: and estimate[tenant t] lines
+             (golden/plans_small.json).
 
 Tolerance: exact. Every kernel computes integer or bit-defined results
 (segment_sum sums integer-valued float64 below 2^53, where any order of its
@@ -736,6 +759,50 @@ def phase_edges(dev) -> None:
         for f, a, b in zip(("f1", "chi", "f2", "has_f3"), fused_ingest(*args),
                            fused_ingest_plain(*args)):
             require_equal(f"fused_ingest r={r} s={s} K={K} m_seen={m_seen} step0={step0} {f}", a, b)
+        cases += 1
+    # fused_ingest at an estimator offset e0 (a shard of a sharded plan):
+    # shards off the 512-estimator tile, one tenant and a bank of 2, equal to
+    # the plain version and, concatenated, to one full-r call; and offsets
+    # near the top of the 32-bit counter
+    for r, s, K, bounds, T in ((1537, 513, 2, (0, 1, 512, 1025, 1537), None),
+                               (5000, 1023, 3, (0, 2500, 4999, 5000), None),
+                               (2**16 + 3, 20_000, 2, (0, 3, 2**15, 2**16 + 3), 2)):
+        g = np.random.default_rng(r)
+        key = trng.PRNGKey(r, dev)
+        Wt, nvt = fused_chunk(g, s, K, dev, (1,) if K > 2 else ())
+        st = bulk_update_chunk(init_state(r, dev), *fused_chunk(g, s, 2, dev), key,
+                               backend="kernel")
+        if T is not None:  # a bank: tenant 1 another state, keys and first step
+            st2 = bulk_update_chunk(init_state(r, dev), *fused_chunk(g, s, 2, dev),
+                                    trng.PRNGKey(r + 1, dev), backend="kernel")
+            st = type(st)(*(torch.stack([a, b]) for a, b in zip(st, st2)))
+            Wt, nvt = torch.stack([Wt, Wt.flip(1)]), torch.stack([nvt, nvt.flip(0)])
+            key = torch.stack([key, trng.PRNGKey(r + 2, dev)])
+            step0 = torch.tensor([5, 2**32 - 1], dtype=torch.int64, device=dev)
+        else:
+            step0 = 9
+        structs = chunk_structures(Wt, nvt, use_kernels=True)
+        lead = () if T is None else (slice(None),)
+        whole = fused_ingest(*st[:4], *structs, Wt, nvt, st.m_seen, key, step0)
+        for lo, hi in zip(bounds, bounds[1:]):
+            part = [x[lead + (slice(lo, hi),)].contiguous() for x in st[:4]]
+            a_s = (*part, *structs, Wt, nvt, st.m_seen, key, step0, lo)
+            for f, a, b, w in zip(("f1", "chi", "f2", "has_f3"), fused_ingest(*a_s),
+                                  fused_ingest_plain(*a_s), whole):
+                require_equal(f"fused_ingest r={r} T={T} e0={lo} {f}", a, b)
+                require_equal(f"fused_ingest r={r} T={T} e0={lo} {f}: the full-r call's rows",
+                              a, w[lead + (slice(lo, hi),)])
+            cases += 1
+    for e0 in (2**31 - 7, 2**32 - 1537):
+        g = np.random.default_rng(e0 % 1000)
+        st = bulk_update_chunk(init_state(1537, dev), *fused_chunk(g, 513, 2, dev),
+                               trng.PRNGKey(3, dev), backend="kernel")
+        Wt, nvt = fused_chunk(g, 513, 3, dev)
+        a_s = (*st[:4], *chunk_structures(Wt, nvt, use_kernels=True), Wt, nvt, st.m_seen,
+               trng.PRNGKey(4, dev), 2**32 - 2, e0)
+        for f, a, b in zip(("f1", "chi", "f2", "has_f3"), fused_ingest(*a_s),
+                           fused_ingest_plain(*a_s)):
+            require_equal(f"fused_ingest e0={e0} {f}", a, b)
         cases += 1
     # segment_sum: integer-valued float64, so atomics in any order are exact
     for n, m, d in itertools.product((0, 1, 255, 256, 257, 4097, 100_003), (0, 1, 31, 1000),
@@ -1695,7 +1762,270 @@ def phase_tenants_full(dev, full: dict, local: dict, dynamic: dict) -> dict:
           "global": global_out, "local": local_out, "burst": burst_out, "ok": True})
     launches_all = {k: launches[k] + launches_l[k] + launches_b[k] for k in launches}
     return {"launches": launches_all, "state": state, "streams": streams, "keys": keys,
-            "local_state": lbank.state, "local_scheme": lbank.scheme}
+            "local_state": lbank.state, "local_scheme": lbank.scheme, "digests": digests,
+            "local_estimates": est_l}
+
+
+def phase_plans_full(dev, card: str, full: dict, tenants: dict) -> list:
+    """The sharded plans at the full width (r = 2^21, s = 2^20, phase full's
+    stream) on one-process meshes whose 4 shards all lie on this card
+    (``host_devices=4``), kernel route: (a) pjit_independent and
+    pjit_coordinated on ``estimators=4``, batch by batch (these plans do not
+    chunk): each ends in phase full's state; (b) shardmap on
+    ``estimators=4`` at capacity factor 2.0: no overflow and no escalation,
+    the state equal to the same plan on the plain route (scan ingest,
+    torch.searchsorted and torch.sort), rel.err within 5%, the
+    device-resident query equal to the gather oracle; (c)
+    banked_pjit_coordinated on ``tenants=2,estimators=2`` over
+    tenants_full's four streams (seeds 7-10), chunked at K = 4 (fused_ingest
+    runs on each shard at its estimator offset, 0 or r/2): each tenant
+    equals tenants_full (a); (d) local (8 pools, 2^22 vertices) on
+    banked_pjit_independent over ``tenants=4``: the device query's
+    per-vertex answer equals the gather oracle and tenants_full (b); (e) a
+    snapshot of (c)'s engine after its first chunk restored into a
+    ``single`` engine and a ``tenants=4`` one, each run on to (c)'s end
+    state; (f) on engines restored from (c)'s end: a fault at the
+    engine.estimate site and a timeout below the query's time each fall
+    back to the gather oracle, counted, with the oracle's answer. Every run
+    zeroes the launch counts just before it and requires its path's
+    kernels after; it records host seconds, edges/s, peak device bytes and
+    the device-busy ms of one update (torch.profiler), and for shardmap the
+    share of one update's device time spent between the routing
+    all_to_all copies' events. The 4 shards share one card, so these
+    numbers show per-shard overheads, not scaling. Returns the kernels-line
+    row of fused_ingest on (c)'s shard at e0 = r/2."""
+    import torch
+
+    from repro_torch import rng as trng
+    from repro_torch.core import distributed
+    from repro_torch.core.bulk import chunk_structures
+    from repro_torch.data.graph_stream import batches
+    from repro_torch.engine import EngineConfig, TriangleCountEngine, run_stream
+    from repro_torch.engine.faults import FaultPlan, FaultSpec, fault_plan
+    from repro_torch.interop import state_sha256, tenant_snapshot
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.fused_ingest import fused_ingest, fused_ingest_plain
+    from repro_torch.launch.mesh import make_stream_mesh
+
+    edges, tau = full["edges"], full["tau"]
+    s, K, r, T, V = FULL["s"], FULL["K"], FULL["r"], FULL["tenants"], FULL["vertices"]
+    m = len(edges)
+    seed = FULL["seed"]
+    seeds = tuple(seed + t for t in range(T))
+    streams = tenants["streams"]
+
+    def engine(spec, backend, n_tenants=1, tenant_seeds=(seed,), chunk=1, plain=False, **kw):
+        mesh = make_stream_mesh(spec, device=dev, host_devices=4) if spec else None
+        return TriangleCountEngine(EngineConfig(
+            r=r, batch_size=s, chunk_size=chunk, groups=FULL["groups"], n_tenants=n_tenants,
+            seeds=tenant_seeds, backend=backend, device=dev.type,
+            ingest="scan" if plain else "kernel", multisearch="eager" if plain else "kernel",
+            **kw), mesh=mesh)
+
+    def run(name, kernels, eng, items):
+        """Drive ``eng`` with every count zeroed just before and read just
+        after; every kernel of the path must have launched."""
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        rep = run_stream(eng, items)
+        torch.cuda.synchronize(dev)
+        launches = dict(LAUNCHES)
+        missing = [k for k in kernels if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"plans_full {name}: kernels never launched: {missing}")
+        if eng.plan.name != name.split(":")[0]:
+            raise AssertionError(f"plans_full: ran plan {eng.plan.name}, not {name}")
+        return {"seconds": rep.seconds, "edges_per_s": rep.edges_per_s * eng.n_tenants,
+                "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+                "launches": launches}
+
+    tail = torch.zeros((s, 2), dtype=torch.int32, device=dev)
+    n_tail = m - 2 * K * s
+    tail[:n_tail] = torch.from_numpy(edges[2 * K * s:]).to(dev)
+    tail_key = trng.fold_in(trng.PRNGKey(seed, dev), 2 * K)
+    batch_kernels = ("multisearch_counts", "bitonic_sort_tiles", "segscan")
+    out = {}
+
+    # (a) the pjit plans, batch by batch: phase full's state
+    for w in ("independent", "coordinated"):
+        eng = engine("estimators=4", f"pjit_{w}")
+        res = run(f"pjit_{w}", batch_kernels, eng, batches(edges, s))
+        if state_sha256(eng.snapshot()) != full["digest"]:
+            raise AssertionError(f"plans_full pjit_{w}: state differs from phase full's")
+        upd, st = eng._update, eng._state
+        res["tail_update_profile"] = device_busy(lambda: upd(st, tail, n_tail, tail_key))
+        out[f"pjit_{w}"] = {**res, "state_equal_phase_full": True}
+        del eng, upd, st
+
+    # (b) shardmap, kernel route against the plain route
+    sm = engine("estimators=4", "shardmap", capacity_factor=2.0)
+    res = run("shardmap", batch_kernels, sm, batches(edges, s))
+    digest = state_sha256(sm.snapshot())
+    est = sm.estimate()
+    if not np.array_equal(est, sm.estimate(gather=True)):
+        raise AssertionError("plans_full shardmap: device query differs from the gather oracle")
+    if sm.diag.overflow_batches or sm.diag.capacity_escalations:
+        raise AssertionError(f"plans_full shardmap: overflow {sm.diag}")
+    rel = abs(float(est[0]) - tau) / tau
+    if rel > REL_ERR_LIMIT:
+        raise AssertionError(f"plans_full shardmap: rel.err {rel:.4%} > {REL_ERR_LIMIT:.0%}")
+    plain = engine("estimators=4", "shardmap", capacity_factor=2.0, plain=True)
+    t0 = time.perf_counter()
+    run_stream(plain, batches(edges, s))
+    plain_s = time.perf_counter() - t0
+    if state_sha256(plain.snapshot()) != digest:
+        raise AssertionError("plans_full shardmap: kernel route differs from the plain route")
+    del plain
+    upd, st = sm._update, sm._state
+    res["tail_update_profile"] = device_busy(lambda: upd(st, tail, n_tail, tail_key))
+    # the routing copies' share: events around every all_to_all of one update
+    orig, pairs = distributed._all_to_all, []
+
+    def timed(mesh, group, bufs):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        got = orig(mesh, group, bufs)
+        b.record()
+        pairs.append((a, b))
+        return got
+
+    upd(st, tail, n_tail, tail_key)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    distributed._all_to_all = timed
+    try:
+        torch.cuda.synchronize(dev)
+        ev[0].record()
+        upd(st, tail, n_tail, tail_key)
+        ev[1].record()
+        torch.cuda.synchronize(dev)
+    finally:
+        distributed._all_to_all = orig
+    route_ms = sum(a.elapsed_time(b) for a, b in pairs)
+    update_ms = ev[0].elapsed_time(ev[1])
+    out["shardmap"] = {**res, "state_sha256": digest, "plain_route_equal": True,
+                       "plain_route_seconds": plain_s, "estimate": float(est[0]), "rel_err": rel,
+                       "overflow_batches": 0, "capacity_escalations": 0,
+                       "device_query_equals_gather": True,
+                       "device_query_ms": time_ms(lambda: sm._estimate_device(st), reps=5),
+                       "update_ms": update_ms, "all_to_all_calls": len(pairs),
+                       "routing_copies_ms": route_ms, "routing_share": route_ms / update_ms}
+    del sm, upd, st
+
+    # (c) the tenant-sharded bank, chunked: each tenant equals tenants_full (a)
+    bank = engine("tenants=2,estimators=2", "banked_pjit_coordinated", T, seeds, chunk=K)
+    res = run("banked_pjit_coordinated", CHUNK_KERNELS + ("multisearch_counts",), bank,
+              bank_batches(streams))
+    snap_c = bank.snapshot()
+    digests = [state_sha256(tenant_snapshot(snap_c, t)) for t in range(T)]
+    if digests != tenants["digests"]:
+        raise AssertionError("plans_full banked_pjit_coordinated: tenants differ from "
+                             "tenants_full (a)")
+    if not np.array_equal(bank.estimate(), bank.estimate(gather=True)):
+        raise AssertionError("plans_full banked: device query differs from the gather oracle")
+    Ws = torch.from_numpy(np.stack([e[:K * s].reshape(K, s, 2) for e in streams])).to(dev)
+    nv = torch.full((T, K), s, dtype=torch.int32, device=dev)
+    keys = torch.stack([trng.PRNGKey(x, dev) for x in seeds])
+    upd, st = bank._update_chunk, bank._state
+    res["chunk_profile"] = device_busy(lambda: upd(st, Ws, nv, keys, 0))
+    res["chunk_ms"] = time_ms(lambda: upd(st, Ws, nv, keys, 0), reps=3)
+    out["banked_pjit_coordinated"] = {**res, "state_sha256": digests, "tenants_equal": True}
+    launches_c = res["launches"]
+    del upd, st
+
+    # the kernels-line row: fused_ingest on (c)'s second estimator shard of
+    # tenant block 0 (2 tenants, r/2 estimators at e0 = r/2), against its
+    # plain version and against the same rows of one full-r call
+    half = r // 2
+    full_state = tenants["state"]
+    sh = [x[:2, half:].contiguous() if x.dim() > 1 else x[:2].contiguous() for x in full_state]
+    structs = chunk_structures(Ws[:2], nv[:2], use_kernels=True)
+    args = (*sh[:4], *structs, Ws[:2], nv[:2], sh[4], keys[:2], 0, half)
+    got = fused_ingest(*args)
+    want = fused_ingest_plain(*args)
+    whole = fused_ingest(*[x[:2].contiguous() for x in full_state[:4]], *structs, Ws[:2],
+                         nv[:2], full_state.m_seen[:2], keys[:2], 0)
+    for f, a, b, c in zip(("f1", "chi", "f2", "has_f3"), got, want, whole):
+        require_equal(f"fused_ingest shard e0={half} {f}", a, b)
+        require_equal(f"fused_ingest shard e0={half} {f}, full-r call", a, c[:, half:])
+    args0 = args[:-1] + (0,)
+    tf_ops = 5 * (20 * 3 + 6 * 3)
+    search_ops = 2 * (5 * math.ceil(math.log2(2 * s + 1)) + 2 * math.ceil(math.log2(s + 1)))
+    b_ms, b_by = bound(nbytes(*args[:-3], args[-3]) + nbytes(*sh[:4]),
+                       2 * half * K * (tf_ops + search_ops))
+    src_path, replaces = KERNELS["fused_ingest"]
+    row = {"name": f"fused_ingest (shard: 2 tenants x r/2 at e0 = {half})", "route": "cuda",
+           "source": src_path, "replaces": replaces, "launches": launches_c["fused_ingest"],
+           "max_abs_err": max(max_abs(a, b) for a, b in zip(got, want)),
+           "ms": time_ms(lambda: fused_ingest(*args), reps=10),
+           "plain_ms": time_ms(lambda: fused_ingest_plain(*args), reps=2, warmup=1),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+           "ms_at_e0_0": time_ms(lambda: fused_ingest(*args0), reps=10),
+           "ms_at_e0_again": time_ms(lambda: fused_ingest(*args), reps=10)}
+    del sh, structs, args, args0, got, want, whole
+
+    # (d) local on tenants=4: the device query's per-vertex answers
+    params = {"n_vertices": V, "n_pools": FULL["pools"]}
+    lbank = engine("tenants=4", "banked_pjit_independent", T, seeds, chunk=K, scheme="local",
+                   scheme_params=params)
+    torch.cuda.synchronize(dev)
+    res = run("banked_pjit_independent:local", batch_kernels, lbank, batches(edges, s))
+    reset_launches()
+    est_l = lbank.estimate()
+    if LAUNCHES["segment_sum"] != T:
+        raise AssertionError(f"plans_full local: segment_sum launched {LAUNCHES['segment_sum']} "
+                             f"times in the device query (want {T}, one a shard)")
+    if not np.array_equal(est_l, lbank.estimate(gather=True)) or \
+            not np.array_equal(est_l, tenants["local_estimates"]):
+        raise AssertionError("plans_full local: the device query differs from the gather "
+                             "oracle or from tenants_full (b)")
+    qst = lbank._state
+    res["device_query_ms"] = time_ms(lambda: lbank._estimate_device(qst), reps=3)
+    res["gather_query_ms"] = time_ms(lambda: lbank.estimate(gather=True), reps=3)
+    res["device_query_profile"] = device_busy(lambda: lbank._estimate_device(qst))
+    out["banked_pjit_independent_local"] = {**res, "estimates_equal_tenants_full": True}
+    del lbank, qst
+
+    # (e) (c)'s snapshot after its first chunk, restored into other meshes
+    first = engine("tenants=2,estimators=2", "banked_pjit_coordinated", T, seeds, chunk=K)
+    run_stream(first, itertools.islice(bank_batches(streams), K))
+    snap1 = first.snapshot()
+    del first
+    for spec, plan in (("", "single"), ("tenants=4", "banked_pjit_independent")):
+        e = engine(spec, plan, T, seeds, chunk=K)
+        e.restore(snap1)
+        run_stream(e, bank_batches(streams))  # skips the restored prefix
+        sn = e.snapshot()
+        if [state_sha256(tenant_snapshot(sn, t)) for t in range(T)] != digests:
+            raise AssertionError(f"plans_full: (c)'s snapshot restored into {plan} diverged")
+        del e
+    out["snapshots_cross_meshes"] = ["single", "banked_pjit_independent"]
+
+    # (f) the device query's fallbacks, on engines restored from (c)'s end
+    want = bank.estimate(gather=True)
+    del bank
+    q = engine("tenants=2,estimators=2", "banked_pjit_coordinated", T, seeds, chunk=K)
+    q.restore(snap_c)
+    with fault_plan(FaultPlan([FaultSpec("engine.estimate", "raise")])):
+        got_f = q.estimate()
+    q2 = engine("tenants=2,estimators=2", "banked_pjit_coordinated", T, seeds, chunk=K)
+    q2.restore(snap_c)
+    qs = q2._state
+    query_ms = time_ms(lambda: q2._estimate_device(qs), reps=3)
+    got_t = q2.estimate(timeout_s=1e-6)
+    if (q.diag.query_fallbacks, q.diag.query_timeouts) != (1, 0) or \
+            (q2.diag.query_fallbacks, q2.diag.query_timeouts) != (1, 1):
+        raise AssertionError(f"plans_full: fallbacks {q.diag}, {q2.diag}")
+    if not (np.array_equal(got_f, want) and np.array_equal(got_t, want)):
+        raise AssertionError("plans_full: a fallback answer differs from the oracle")
+    out["fallbacks"] = {"fault": {"query_fallbacks": 1, "query_timeouts": 0},
+                        "timeout_s": 1e-6, "device_query_ms": query_ms,
+                        "timeout": {"query_fallbacks": 1, "query_timeouts": 1},
+                        "answers_equal_oracle": True}
+    del q, q2, qs
+    emit({"phase": "plans_full", "card": card, "shards": 4, "host_devices": 4, "r": r, "s": s,
+          "K": K, "m": m, "tau": tau, **out, "ok": True})
+    return [row]
 
 
 def bank_kernel_rows(dev, tenants: dict) -> list:
@@ -2186,8 +2516,16 @@ def phase_cli() -> None:
     for block in ("diag", "report", "fault_plan"):
         if diag[block] != res[block]:
             raise AssertionError(f"cli: diag {block} {diag[block]} != JAX CLI {res[block]}")
+    # a tenant-sharded bank on a 4-shard mesh on this card: the JAX CLI's
+    # mesh: and estimate[tenant t] lines for the same flags
+    plans = json.loads((ROOT / "src/repro_torch/golden/plans_small.json").read_text())
+    lines = cli_lines(plans["args"])
+    plan_lines = [ln for ln in lines if ln.startswith(("mesh:", "estimate"))]
+    if plan_lines != plans["lines"]:
+        raise AssertionError(f"cli: mesh lines {plan_lines} != JAX CLI {plans['lines']}")
     emit({"phase": "cli", "estimate_line": est_line, "local_line": local_line,
-          "resilience_lines": got, "diag_report": diag["report"], "ok": True})
+          "resilience_lines": got, "diag_report": diag["report"], "mesh_lines": plan_lines,
+          "ok": True})
 
 
 def main() -> int:
@@ -2217,8 +2555,9 @@ def main() -> int:
     dynamic = phase_dynamic_full(dev, full)
     phase_chaos_full(dev, card, full, dynamic)
     tenants = phase_tenants_full(dev, full, local, dynamic)
+    plan_rows = phase_plans_full(dev, card, full, tenants)
     rows = phase_kernels(dev, full, local, dynamic)
-    rows += bank_kernel_rows(dev, tenants)
+    rows += bank_kernel_rows(dev, tenants) + plan_rows
     phase_cli()
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})

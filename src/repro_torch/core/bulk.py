@@ -23,6 +23,13 @@ key (T, 2) and ``n_valid`` (an int shared by every tenant, or a (T,)
 tensor) all lead with T. Each operation then runs once over the whole bank,
 so a bank issues the same device operations as one tenant, and each
 search is one batched ``multisearch_counts`` launch, a row a tenant.
+
+Shards: every update takes ``e0``, the global index of the state's first
+estimator. A shard holding estimators ``[e0, e0 + r_local)`` of an
+r-estimator state draws elements ``e0 ..`` of each full-r draw (the
+reference's partitionable threefry, ``rng._block``), so the shards of a
+sharded plan, updated apart, concatenate to the unsharded update bit for
+bit. ``e0`` is 0 for an unsharded state.
 """
 from __future__ import annotations
 
@@ -66,13 +73,14 @@ def _at(x: Tensor, j: Tensor) -> Tensor:
     return torch.gather(x, -1, j)
 
 
-def step1_level1(state: EstimatorState, W: Tensor, n_valid: IntLike, key: Tensor):
+def step1_level1(state: EstimatorState, W: Tensor, n_valid: IntLike, key: Tensor,
+                 e0: int = 0):
     """Reservoir-sample level-1 edges over E ∪ W (paper Section 4.2): draw
     t ~ U[0, m + n_valid); t >= m selects W[t - m]."""
     r = state.r
     m = _col(state.m_seen)
     total = m + _col(n_valid)
-    t = rng.randint64(key, torch.clamp(total, min=1), (r,))
+    t = rng.randint64(key, torch.clamp(total, min=1), (r,), e0)
     replace = (t >= m) & (total > 0)
     last = (torch.clamp(_col(n_valid) - 1, min=0) if isinstance(n_valid, Tensor)
             else max(int(n_valid) - 1, 0))
@@ -122,7 +130,7 @@ def _p_new(chi_plus: Tensor, chi_new: Tensor) -> Tensor:
 
 
 def step2_level2(f1, chi_minus, f2, has_f3, f1_bpos, R: RankStructure, key,
-                 search: str = "auto"):
+                 search: str = "auto", e0: int = 0):
     """Update level-2 edges and chi (paper Section 4.3)."""
     u, v = f1[..., 0], f1[..., 1]
     have_f1 = u >= 0
@@ -135,10 +143,10 @@ def step2_level2(f1, chi_minus, f2, has_f3, f1_bpos, R: RankStructure, key,
 
     k = rng.split(key)
     r = f1.shape[-2]
-    coin = rng.uniform(k[..., 0, :], (r,))
+    coin = rng.uniform(k[..., 0, :], (r,), e0)
     take_new = have_f1 & (chi_plus > 0) & (coin < _p_new(chi_plus, chi_new))
 
-    phi = rng.randint32(k[..., 1, :], torch.clamp(chi_plus, min=1), (r,))
+    phi = rng.randint32(k[..., 1, :], torch.clamp(chi_plus, min=1), (r,), e0)
     t_src = torch.where(phi < ld, u, v)
     t_rank = torch.where(phi < ld, phi, phi - ld)
     lt, le = multisearch_bounds(R.key_rank, pack2(t_src, t_rank), search)
@@ -172,19 +180,19 @@ def step3_closing(f1, f2, has_f3, f2_bpos, R: RankStructure, search: str = "auto
 
 
 def bulk_update_all(state: EstimatorState, W: Tensor, n_valid: IntLike,
-                    key: Tensor, search: str = "auto") -> EstimatorState:
+                    key: Tensor, search: str = "auto", e0: int = 0) -> EstimatorState:
     """Process one batch of edges into all estimators (paper Theorem 4.1).
     W: (s, 2) int32 on the state's device; the first n_valid rows are real;
     a bank's W is (T, s, 2) (module docstring). Where ``search`` resolves to
     the kernel, the structure is built by the chunk route's kernels too
     (``rank_all(use_kernels=True)``: the tile sort and the scans, over the
-    bank's T batches at once)."""
+    bank's T batches at once). ``e0``: the module docstring's shards."""
     k = rng.split(key)
-    f1, chi_m, f2, has_f3, f1_bpos = step1_level1(state, W, n_valid, k[..., 0, :])
+    f1, chi_m, f2, has_f3, f1_bpos = step1_level1(state, W, n_valid, k[..., 0, :], e0)
     R = rank_all(W, n_valid,
                  use_kernels=resolve_multisearch_backend(search, W.device) == "kernel")
     f2, chi, has_f3, f2_bpos = step2_level2(f1, chi_m, f2, has_f3, f1_bpos, R, k[..., 1, :],
-                                            search)
+                                            search, e0)
     has_f3 = step3_closing(f1, f2, has_f3, f2_bpos, R, search)
     return EstimatorState(f1, chi, f2, has_f3, state.m_seen + n_valid)
 
@@ -203,20 +211,21 @@ def batch_keys(key: Tensor, step0: IntLike, K: int) -> Tensor:
 
 def _bulk_update_chunk_scan(state: EstimatorState, Ws: Tensor, n_valids: Tensor,
                             key: Tensor, step0: IntLike = 0,
-                            search: str = "auto") -> EstimatorState:
+                            search: str = "auto", e0: int = 0) -> EstimatorState:
     """The reference chunk pipeline: K sequential ``bulk_update_all`` calls."""
     keys = batch_keys(key, step0, Ws.shape[-3])
     for i in range(Ws.shape[-3]):
         state = bulk_update_all(state, Ws[..., i, :, :], n_valids[..., i], keys[..., i, :],
-                                search)
+                                search, e0)
     return state
 
 
-def _chunk_randomness(state: EstimatorState, n_valids: Tensor, key: Tensor, steps: Tensor):
+def _chunk_randomness(state: EstimatorState, n_valids: Tensor, key: Tensor, steps: Tensor,
+                      e0: int = 0):
     """Every random draw of a K-batch chunk at once, batched over K keys.
     Returns (m_before (K,), totals (K,), t (K, r), coin (K, r), phi_hi (K, r),
     phi_lo (K, r)), each with a bank's leading tenant axis; the phi words
-    are int32 tensors carrying uint32 bits."""
+    are int32 tensors carrying uint32 bits. Lane i draws element e0 + i."""
     r = state.r
     nv64 = n_valids.to(torch.int64)
     m_before = _col(state.m_seen) + torch.cumsum(nv64, -1) - nv64
@@ -227,10 +236,10 @@ def _chunk_randomness(state: EstimatorState, n_valids: Tensor, key: Tensor, step
     kcp = rng.split(k12[..., 1, :])  # step 2's (k_coin, k_phi)
     kbits = rng.split(kcp[..., 1, :])  # randint's internal split
 
-    t = rng.randint64(k12[..., 0, :], torch.clamp(totals, min=1)[..., None], (r,))
-    coin = rng.uniform(kcp[..., 0, :], (r,))
-    phi_hi = rng.bits32(kbits[..., 0, :], (r,)).to(torch.int32)
-    phi_lo = rng.bits32(kbits[..., 1, :], (r,)).to(torch.int32)
+    t = rng.randint64(k12[..., 0, :], torch.clamp(totals, min=1)[..., None], (r,), e0)
+    coin = rng.uniform(kcp[..., 0, :], (r,), e0)
+    phi_hi = rng.bits32(kbits[..., 0, :], (r,), e0).to(torch.int32)
+    phi_lo = rng.bits32(kbits[..., 1, :], (r,), e0).to(torch.int32)
     return m_before, totals, t, coin, phi_hi, phi_lo
 
 
@@ -281,16 +290,18 @@ def fused_batch(f1, chi, f2, has_f3, R: RankStructure, replace, w_sel, f1_bpos,
 
 
 def chunk_draws(state: EstimatorState, Ws: Tensor, n_valids: Tensor, key: Tensor,
-                step0: IntLike):
+                step0: IntLike, e0: int = 0):
     """Every draw and step-1 select of a K-batch chunk, hoisted out of the
     batch loop: ``fused_ingest_hoisted``'s arguments after the structures
     (replace, w_sel, f1_bpos, coin, phi_hi, phi_lo). The ``fused_ingest``
     kernel computes the same values in registers instead. ``step0`` is an
-    int or a bank's (T,) tensor of per-tenant first steps."""
+    int or a bank's (T,) tensor of per-tenant first steps; ``e0`` the
+    state's first estimator (the module docstring's shards)."""
     dev = Ws.device
     n_valids = n_valids.to(device=dev, dtype=torch.int32)
     steps = chunk_steps(step0, Ws.shape[-3], dev)
-    m_before, totals, t, coin, phi_hi, phi_lo = _chunk_randomness(state, n_valids, key, steps)
+    m_before, totals, t, coin, phi_hi, phi_lo = _chunk_randomness(state, n_valids, key, steps,
+                                                                  e0)
 
     # the reservoir decisions are deterministic in (t, m_seen trajectory),
     # and m_seen's trajectory is a cumsum of the batch sizes
@@ -316,7 +327,7 @@ def chunk_structures(Ws: Tensor, n_valids: Tensor, *, use_kernels: bool):
 
 def _bulk_update_chunk_fused(state: EstimatorState, Ws: Tensor, n_valids: Tensor,
                              key: Tensor, step0: IntLike, *,
-                             use_kernels: bool) -> EstimatorState:
+                             use_kernels: bool, e0: int = 0) -> EstimatorState:
     """The fused K-batch pipeline. The kernel route (``use_kernels``) builds
     the structures with kernels and hands the chunk to the ``fused_ingest``
     kernel, which draws its own randomness; the plain route hoists the draws
@@ -327,15 +338,15 @@ def _bulk_update_chunk_fused(state: EstimatorState, Ws: Tensor, n_valids: Tensor
     structs = chunk_structures(Ws, nv, use_kernels=use_kernels)
     st = (state.f1, state.chi, state.f2, state.has_f3)
     if use_kernels:
-        out = fused_ingest(*st, *structs, Ws, nv, state.m_seen, key, step0)
+        out = fused_ingest(*st, *structs, Ws, nv, state.m_seen, key, step0, e0)
     else:
-        out = fused_ingest_hoisted(*st, *structs, *chunk_draws(state, Ws, nv, key, step0))
+        out = fused_ingest_hoisted(*st, *structs, *chunk_draws(state, Ws, nv, key, step0, e0))
     return EstimatorState(*out, state.m_seen + torch.sum(nv.to(torch.int64), dim=-1))
 
 
 def bulk_update_chunk(state: EstimatorState, Ws: Tensor, n_valids: Tensor,
                       key: Tensor, step0: IntLike = 0, *, backend: str = "auto",
-                      search: str = "auto") -> EstimatorState:
+                      search: str = "auto", e0: int = 0) -> EstimatorState:
     """Fold K stacked batches into the state: bit-for-bit equal to
 
         for i in range(K):
@@ -348,12 +359,13 @@ def bulk_update_chunk(state: EstimatorState, Ws: Tensor, n_valids: Tensor,
     step, the elastic tier's per-slot cursors). ``backend`` is an ingest backend
     (``repro_torch.primitives.ingest``); ``search`` is the multisearch
     backend of the "scan" route (the fused routes search inside the batch
-    loop: plain searches, or the kernel's own)."""
+    loop: plain searches, or the kernel's own). ``e0``: the module
+    docstring's shards."""
     b = resolve_ingest_backend(backend, Ws.device)
     if b == "scan":
-        return _bulk_update_chunk_scan(state, Ws, n_valids, key, step0, search)
+        return _bulk_update_chunk_scan(state, Ws, n_valids, key, step0, search, e0)
     return _bulk_update_chunk_fused(state, Ws, n_valids, key, step0,
-                                    use_kernels=(b == "kernel"))
+                                    use_kernels=(b == "kernel"), e0=e0)
 
 
 # ---------------------------------------------------------------------------

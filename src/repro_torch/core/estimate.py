@@ -6,6 +6,15 @@ tau. The estimate is a median of means over g groups of r/g estimators, with
 ``groups`` rounded down to the largest divisor of r (``effective_groups``).
 A bank's state (a leading tenant axis) gets one estimate per tenant, the
 reference's ``vmap(scheme.estimate)``.
+
+Shardable decomposition (the device-resident query of the sharded plans,
+``repro_torch.core.distributed``): a shard holding the contiguous estimator
+slice ``[offset, offset + r_local)`` computes ``partial_group_sums``, its
+coarse estimates added into the g group bins by global index, and
+``combine_group_sums`` adds the shards' partials in shard order, divides by
+the group size and takes the median. That is ``estimate`` bit for bit: each
+coarse estimate is an integer (``chi * m_seen``) held exactly in float64, so
+the group sums are exact integers below 2**53 in any order of addition.
 """
 from __future__ import annotations
 
@@ -50,3 +59,23 @@ def estimate(state: EstimatorState, groups: int = 9) -> torch.Tensor:
     r = x.shape[-1]
     g = effective_groups(r, groups)
     return median(torch.mean(x.reshape(*x.shape[:-1], g, r // g), dim=-1))
+
+
+def partial_group_sums(x_local: torch.Tensor, offset: int, r: int, groups: int) -> torch.Tensor:
+    """(g,) float64 partial group sums of the coarse estimates ``x_local``
+    ((r_local,), or (T, r_local) for a bank's slice, giving (T, g)) whose
+    first element is estimator ``offset`` of r. Groups are contiguous blocks
+    of r // g, so a shard may straddle a boundary: each element lands in the
+    bin its global index names, and bins the shard does not touch stay 0."""
+    g = effective_groups(r, groups)
+    n = x_local.shape[-1]
+    gid = (offset + torch.arange(n, device=x_local.device)) // (r // g)
+    out = torch.zeros(*x_local.shape[:-1], g, dtype=torch.float64, device=x_local.device)
+    return out.index_add_(-1, gid, x_local.to(torch.float64))
+
+
+def combine_group_sums(partials: torch.Tensor, r: int, groups: int) -> torch.Tensor:
+    """Median of means from stacked (n_shards, .., g) partial group sums,
+    added over the leading axis in shard order; equals ``estimate``."""
+    g = effective_groups(r, groups)
+    return median(torch.sum(partials, dim=0) / (r // g))

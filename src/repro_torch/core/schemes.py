@@ -29,7 +29,20 @@ The port's methods take the engine's backends as keywords: ``search`` (the
 multisearch backend of the per-batch update), ``backend`` (the ingest
 backend of the chunked update) and, for ``estimate``, ``backend`` decides
 whether the local scatter runs in the kernel ("kernel") or plainly.
-The sharded estimate stage raises, naming the ROADMAP item that brings it.
+
+The sharded plans (``repro_torch.core.distributed``) read three things off a
+scheme: ``axis_roles()``, how each state leaf relates to the estimator axis
+(``estimator`` and ``pair`` leaves split their leading axis over the
+shards, ``replicated`` ones, ``m_seen``, are copied); ``update_kind``, which
+must be ``"nbsi"`` (the paper's bulkUpdateAll) for the ``shardmap`` plan,
+whose routed multisearch writes that update out; and, where
+``shardable_estimate`` is set, the pair ``partial_estimate`` /
+``combine_estimates``: each shard reduces its contiguous estimator slice to
+a fixed-shape partial (group sums for ``global``/``naive``, pool-local
+attribution sums for ``local``) and the partials, added in shard order,
+give ``estimate`` bit for bit (the integer-valued float64 argument of
+``core/estimate.py``). The updates take ``e0``, the global index of the
+state's first estimator, so a shard draws its slice of the full-r draws.
 
 Deletions and window expiry (the reference's fully-dynamic extension,
 CoCoS, arXiv:1802.04249) are one state transition for every scheme:
@@ -59,14 +72,28 @@ from repro_torch.core.bulk import (
     bulk_update_all,
     bulk_update_chunk,
 )
-from repro_torch.core.estimate import coarse_estimates, estimate
+from repro_torch.core.estimate import (
+    coarse_estimates,
+    combine_group_sums,
+    estimate,
+    partial_group_sums,
+)
 from repro_torch.core.state import EstimatorState, init_state
 from repro_torch.primitives.ingest import resolve_ingest_backend
 
 Tensor = torch.Tensor
 _HASH_MULT = 2654435761
 _M32 = 0xFFFFFFFF
-_DISTRIBUTED = "distributed plans come with ROADMAP A.13, 'Distributed plans'"
+
+# axis roles: how a state leaf relates to the estimator axis
+ROLE_ESTIMATOR = "estimator"
+ROLE_PAIR = "pair"
+ROLE_REPLICATED = "replicated"
+ROLES = (ROLE_ESTIMATOR, ROLE_PAIR, ROLE_REPLICATED)
+# the NBSI tuple's roles, shared by every scheme whose state is EstimatorState
+NBSI_STATE_ROLES = EstimatorState(
+    f1=ROLE_PAIR, chi=ROLE_ESTIMATOR, f2=ROLE_PAIR, has_f3=ROLE_ESTIMATOR,
+    m_seen=ROLE_REPLICATED)
 
 
 def vertex_pool(v: Tensor, n_pools: int) -> Tensor:
@@ -83,25 +110,27 @@ def vertex_pool(v: Tensor, n_pools: int) -> Tensor:
 class EstimatorScheme:
     """Base scheme: the paper's NBSI state and bulk update, query
     unspecified. Subclasses override ``estimate`` (and, for other updates,
-    ``bulk_update``)."""
+    ``bulk_update`` and ``update_kind``)."""
 
     name: str = "?"
+    update_kind: str = "nbsi"  # the paper's bulkUpdateAll; the shardmap plan needs it
+    shardable_estimate: bool = False
 
     def init_state(self, r: int, device="cpu", n_tenants=None) -> EstimatorState:
         return init_state(r, device, n_tenants)
 
-    def bulk_update(self, state, W, n_valid, key, *, search: str = "auto"):
-        return bulk_update_all(state, W, n_valid, key, search)
+    def bulk_update(self, state, W, n_valid, key, *, search: str = "auto", e0: int = 0):
+        return bulk_update_all(state, W, n_valid, key, search, e0)
 
     def chunk_update(self, state, Ws, n_valids, key, step0=0, *,
-                     backend: str = "auto", search: str = "auto"):
+                     backend: str = "auto", search: str = "auto", e0: int = 0):
         """K stacked batches: batch i draws from ``fold_in(key, step0 + i)``,
         so this equals K sequential ``bulk_update`` calls (the reference's
         ``lax.scan``). ``backend`` is unused here."""
         keys = batch_keys(key, step0, Ws.shape[-3])
         for i in range(Ws.shape[-3]):
             state = self.bulk_update(state, Ws[..., i, :, :], n_valids[..., i], keys[..., i, :],
-                                     search=search)
+                                     search=search, e0=e0)
         return state
 
     # -- turnstile deletions / window expiry --------------------------------
@@ -128,29 +157,44 @@ class EstimatorScheme:
         if r < 1:
             raise ValueError(f"scheme {self.name!r} needs r >= 1, got {r}")
 
-    # -- not ported yet ---------------------------------------------------
-    def axis_roles(self):
-        raise NotImplementedError(_DISTRIBUTED)
+    def axis_roles(self) -> EstimatorState:
+        """The state's structure with a role string for each leaf."""
+        return NBSI_STATE_ROLES
 
-    def partial_estimate(self, state, *, offset, r: int, groups: int = 9):
-        raise NotImplementedError(_DISTRIBUTED)
+    # -- the shardable query (module docstring) -----------------------------
+    def partial_estimate(self, state, *, offset: int, r: int, groups: int = 9,
+                         backend: str = "auto"):
+        """The partial reduction of the contiguous estimator slice
+        ``[offset, offset + r_local)`` of an r-estimator state, of a fixed
+        shape whatever the slice."""
+        raise NotImplementedError(f"scheme {self.name!r} has no shardable estimate stage")
 
     def combine_estimates(self, partials, *, r: int, groups: int = 9):
-        raise NotImplementedError(_DISTRIBUTED)
+        """The estimate from ``(n_shards, ..)`` stacked partials, reduced in
+        shard order."""
+        raise NotImplementedError(f"scheme {self.name!r} has no shardable estimate stage")
 
 
 class GlobalScheme(EstimatorScheme):
     """The paper's query: one global triangle count (Thm 3.4)."""
 
     name = "global"
+    shardable_estimate = True  # group sums factor over contiguous shards
 
     def chunk_update(self, state, Ws, n_valids, key, step0=0, *,
-                     backend: str = "auto", search: str = "auto"):
+                     backend: str = "auto", search: str = "auto", e0: int = 0):
         return bulk_update_chunk(state, Ws, n_valids, key, step0,
-                                 backend=backend, search=search)
+                                 backend=backend, search=search, e0=e0)
 
     def estimate(self, state, groups: int = 9, *, backend: str = "auto") -> Tensor:
         return estimate(state, groups)
+
+    def partial_estimate(self, state, *, offset: int, r: int, groups: int = 9,
+                         backend: str = "auto"):
+        return partial_group_sums(coarse_estimates(state), offset, r, groups)
+
+    def combine_estimates(self, partials, *, r: int, groups: int = 9):
+        return combine_group_sums(partials, r, groups)
 
 
 class NaiveScheme(GlobalScheme):
@@ -158,14 +202,15 @@ class NaiveScheme(GlobalScheme):
     update (O(r * s) work per batch)."""
 
     name = "naive"
+    update_kind = "naive"
 
-    def bulk_update(self, state, W, n_valid, key, *, search: str = "auto"):
-        return naive_parallel_update(state, W, n_valid, key)
+    def bulk_update(self, state, W, n_valid, key, *, search: str = "auto", e0: int = 0):
+        return naive_parallel_update(state, W, n_valid, key, e0)
 
     def chunk_update(self, state, Ws, n_valids, key, step0=0, *,
-                     backend: str = "auto", search: str = "auto"):
+                     backend: str = "auto", search: str = "auto", e0: int = 0):
         return EstimatorScheme.chunk_update(self, state, Ws, n_valids, key, step0,
-                                            backend=backend, search=search)
+                                            backend=backend, search=search, e0=e0)
 
 
 @dataclass(frozen=True)
@@ -182,6 +227,7 @@ class LocalScheme(EstimatorScheme):
     n_vertices: int
     n_pools: int = 1
     name = "local"
+    shardable_estimate = True  # the attribution scatter is shard-local
 
     def validate(self, r: int) -> None:
         super().validate(r)
@@ -238,6 +284,13 @@ class LocalScheme(EstimatorScheme):
         self.validate(r)
         # vertex v's pool holds exactly r / n_pools estimators
         return self._attribution_sums(state, 0, r, backend=backend) / (r // self.n_pools)
+
+    def partial_estimate(self, state, *, offset: int, r: int, groups: int = 9,
+                         backend: str = "auto"):
+        return self._attribution_sums(state, offset, r, backend=backend)
+
+    def combine_estimates(self, partials, *, r: int, groups: int = 9):
+        return torch.sum(partials, dim=0) / (r // self.n_pools)
 
 
 SCHEMES: Dict[str, Callable[..., EstimatorScheme]] = {}
@@ -308,18 +361,20 @@ def _keep_where(skip: Tensor, old: EstimatorState, new: EstimatorState) -> Estim
                             for o, n in zip(old, new)))
 
 
-def naive_parallel_update(state: EstimatorState, W: Tensor, n_valid, key: Tensor) -> EstimatorState:
+def naive_parallel_update(state: EstimatorState, W: Tensor, n_valid, key: Tensor,
+                          e0: int = 0) -> EstimatorState:
     """Process a batch edge at a time across all estimators (O(r * s) work).
     Edge i draws from ``split(split(key, s)[i])``, two float64
     ``uniform(., (r,))``;
     rows at or past ``n_valid`` leave the state as it is, so the loop stops
     there (a bank's loop stops at its largest count, and each tenant keeps
     its state at rows past its own). All s arrivals' draws are made up front
-    in one batched call."""
+    in one batched call. Lane i draws element ``e0 + i`` (a shard's slice,
+    ``core.bulk``'s module docstring)."""
     r, s = state.r, W.shape[-2]
     k = rng.split(rng.split(key, s))  # (.., s, 2, 2): each edge's (k1, k2)
-    u1 = rng.uniform64(k[..., 0, :], (r,))  # (.., s, r)
-    u2 = rng.uniform64(k[..., 1, :], (r,))
+    u1 = rng.uniform64(k[..., 0, :], (r,), e0)  # (.., s, r)
+    u2 = rng.uniform64(k[..., 1, :], (r,), e0)
     per_tenant = isinstance(n_valid, torch.Tensor) and n_valid.dim() > 0
     n = int(n_valid.max()) if per_tenant else int(n_valid)
     for i in range(min(n, s)):

@@ -145,6 +145,10 @@ struct Bank {
   const int* n_valids;  // (T, K)
   const long long *m_seen, *key, *step0s;  // (T,), (T, 2), (T,)
   int T, K;
+  // the global index of the state's first estimator: a shard of a sharded
+  // plan holds estimators [e0, e0 + r) and draws counters e0 + e, its slice
+  // of the full-r draw; the state itself is indexed by e
+  long long e0;
 };
 
 __device__ __forceinline__ Tenant tenant_rows(const Bank& bank, long long t, int r, int s) {
@@ -218,9 +222,11 @@ fused_batch_kernel(const Bank bank, int k, int r, int s) {
       a[j] = live[j] ? f2[2 * e] : -1;
       b[j] = live[j] ? f2[2 * e + 1] : -1;
       h[j] = live[j] && has_f3[e] != 0;
-      // t ~ randint64(0, max(totals, 1)): jax's two-word span arithmetic
-      const unsigned long long w_hi = threefry::bits64(bt.t_hi, (unsigned)e);
-      const unsigned long long w_lo = threefry::bits64(bt.t_lo, (unsigned)e);
+      // t ~ randint64(0, max(totals, 1)): jax's two-word span arithmetic;
+      // every draw's counter is the estimator's global index
+      const unsigned ctr = (unsigned)(bank.e0 + e);
+      const unsigned long long w_hi = threefry::bits64(bt.t_hi, ctr);
+      const unsigned long long w_lo = threefry::bits64(bt.t_lo, ctr);
       const unsigned long long t = ((w_hi % bt.span) * bt.mult + w_lo % bt.span) % bt.span;
       const bool replace = live[j] && bt.any && t >= bt.m_before;
       long long d = (long long)t - (long long)bt.m_before;
@@ -235,9 +241,9 @@ fused_batch_kernel(const Bank bank, int k, int r, int s) {
         a[j] = b[j] = -1;
         h[j] = false;
       }
-      coin[j] = threefry::uniform(bt.coin, (unsigned)e);
-      ph[j] = threefry::bits32(bt.phi_hi, (unsigned)e);
-      pl[j] = threefry::bits32(bt.phi_lo, (unsigned)e);
+      coin[j] = threefry::uniform(bt.coin, ctr);
+      ph[j] = threefry::bits32(bt.phi_hi, ctr);
+      pl[j] = threefry::bits32(bt.phi_lo, ctr);
     }
 
     // --- step 2, Q1: rank/degree of both f1 endpoints, one descent a pair ---
@@ -330,7 +336,8 @@ std::atomic<long long> resident[search::MAX_DEVICES];
 // One launch per batch for all T tenants; *launches is the number of
 // kernels queued (K, or fewer on an error). T, r, K and s are at least 1.
 // step0s holds T int64 first steps on the device: tenant t's batch k draws
-// from fold_in(key[t], step0s[t] + k).
+// from fold_in(key[t], step0s[t] + k). Estimator e draws counter e0 + e
+// (e0 >= 0, e0 + r below 2^32), the same for every tenant.
 extern "C" int fused_ingest(const void* f1, const void* chi, const void* f2,
                             const void* has_f3, const void* key_desc,
                             const void* key_rank, const void* src,
@@ -339,7 +346,8 @@ extern "C" int fused_ingest(const void* f1, const void* chi, const void* f2,
                             const void* m_seen, const void* key, void* f1_out,
                             void* chi_out, void* f2_out, void* has_f3_out,
                             const void* step0s, long long tenants, long long r,
-                            long long n_batches, long long s, void* stream, int* launches) {
+                            long long n_batches, long long s, long long e0, void* stream,
+                            int* launches) {
   *launches = 0;
   long long ctas = 0;
   cudaError_t err = search::resident_ctas(fused_batch_kernel, THREADS, SMEM, resident, &ctas);
@@ -359,7 +367,7 @@ extern "C" int fused_ingest(const void* f1, const void* chi, const void* f2,
         (const int*)epos + k * s, (const int*)Ws + k * 2 * s};
     const Bank bank{zero, (const int*)n_valids, (const long long*)m_seen,
                     (const long long*)key, (const long long*)step0s, (int)tenants,
-                    (int)n_batches};
+                    (int)n_batches, e0};
     fused_batch_kernel<<<blocks, THREADS, SMEM, (cudaStream_t)stream>>>(bank, (int)k, (int)r,
                                                                         (int)s);
     err = cudaGetLastError();

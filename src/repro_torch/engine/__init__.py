@@ -1,6 +1,7 @@
 """The streaming engine, its service loops, and the resilience layer: batch
-validation, fault plans and bounded retries (counterpart of
-``repro.engine``)."""
+validation, fault plans and bounded retries, and the execution plans
+(counterpart of ``repro.engine``)."""
+from repro_torch.engine.backends import BACKENDS, BackendPlan, config_scheme, select_backend
 from repro_torch.engine.engine import (
     EngineConfig,
     EngineDiagnostics,
@@ -24,8 +25,9 @@ from repro_torch.engine.faults import (
 )
 from repro_torch.engine.service import StreamReport, run_signed_stream, run_stream
 
-__all__ = ["DeadLetterBuffer", "EngineConfig", "EngineDiagnostics", "FaultInjected",
+__all__ = ["BACKENDS", "BackendPlan", "DeadLetterBuffer", "EngineConfig", "EngineDiagnostics", "FaultInjected",
            "FaultPlan", "FaultSpec", "ResilienceConfig", "RetryPolicy", "SnapshotMismatch",
-           "StagedChunk", "StreamReport", "TriangleCountEngine", "fault_plan",
+           "StagedChunk", "StreamReport", "TriangleCountEngine", "config_scheme", "fault_plan",
            "install_fault_plan", "parse_fault_plan", "run_signed_stream", "run_stream",
+           "select_backend",
            "validate_batch", "validate_signed_item", "with_retries"]

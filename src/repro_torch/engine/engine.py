@@ -1,4 +1,4 @@
-"""TriangleCountEngine on the ``single`` plan (``repro.engine.engine``).
+"""TriangleCountEngine on every execution plan (``repro.engine.engine``).
 
 A long-lived streaming triangle counter for a bank of ``n_tenants`` edge
 streams (one by default):
@@ -43,14 +43,36 @@ chunked path, as the reference does). Snapshots of such engines carry the
 ring at fixed capacity (``window_edges``, ``window_expiry``,
 ``window_len``), in the reference's format.
 
+Plans (``engine.backends``): ``TriangleCountEngine(config, mesh)`` runs
+the plan ``config.backend`` names (``auto`` picks one as the reference does)
+on a one-process device mesh (``launch.mesh.Mesh``): ``single`` keeps the
+bank on one device; the sharded plans (``pjit_independent``,
+``pjit_coordinated``, ``shardmap``, ``banked_pjit_*``) keep a
+``ShardedState``, one state per shard, placed through the plan's layout,
+and upload each batch or staged chunk host -> shards through the plan's
+``batch_w_sharding``/``chunk_w_sharding``. The ``shardmap`` update returns
+its routing overflow; the engine keeps those device scalars and drains
+them every 8 batches (and at every query and snapshot), and an overflow
+doubles ``capacity_factor`` and rebuilds the update
+(``diag.overflow_batches``, ``diag.capacity_escalations``). A restore drops
+the undrained scalars of the stream it replaces
+(``diag.pending_overflow_dropped``). On the sharded plans ``estimate()``
+runs the device-resident query where the shards live; a fault at its
+``engine.estimate`` site or a ``timeout_s`` that expires falls back to the
+gather oracle, which gathers the shards and answers as ``single`` does,
+counted in ``diag.query_fallbacks`` (and ``diag.query_timeouts``).
+Snapshots stay mesh-free: they gather to the host and restore onto any
+mesh shape, tenants-per-shard split, or no mesh.
+
 Fault sites (``engine.faults``): ``engine.ingest`` first thing in
 ``ingest``, ``engine.stage_chunk`` after ``stage_chunk``'s shape checks and
 before its upload, ``engine.ingest_chunk`` first thing in ``ingest_chunk``
-(before an unstaged chunk is staged), each before any state change, at the
+(before an unstaged chunk is staged), each before any state change, and
+``engine.estimate`` at the device-resident query's dispatch, at the
 reference's points, so the same plan fires on the same calls in both
-packages. The ``single`` plan has no device-resident query, so
-``engine.estimate`` never fires here and ``estimate(timeout_s=)`` has
-nothing to bound, as in the reference.
+packages. ``single`` has no device-resident query, so ``engine.estimate``
+never fires there and ``estimate(timeout_s=)`` has nothing to bound, as in
+the reference.
 
 Window and decay over a bank of more than one tenant are not ported;
 asking for them raises ``NotImplementedError`` naming the ROADMAP item that
@@ -58,16 +80,19 @@ brings them. The engine runs on the card unless ``device="cpu"``.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+import concurrent.futures
+from dataclasses import dataclass, field, replace
 from typing import Any, Iterable, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device, rng
+from repro_torch.core.distributed import ShardedState
 from repro_torch.core.schemes import EstimatorScheme, resolve_scheme
 from repro_torch.core.state import EstimatorState
-from repro_torch.engine.faults import check_fault
+from repro_torch.engine.backends import BackendPlan, select_backend
+from repro_torch.engine.faults import FaultInjected, check_fault
 from repro_torch.primitives.ingest import resolve_ingest_backend
 from repro_torch.primitives.search import resolve_multisearch_backend
 
@@ -86,8 +111,13 @@ class EngineConfig:
     n_tenants: int = 1
     groups: int = 9  # requested median-of-means groups (see effective_groups)
     seeds: Optional[tuple[int, ...]] = None  # per-tenant RNG seeds
+    backend: str = "auto"  # auto, or a name in repro_torch.engine.backends.BACKENDS
     scheme: str = "global"
     scheme_params: Optional[tuple] = None
+    # the mesh axis the bank's tenants shard over (banked_pjit_* plans); every
+    # other axis shards the estimators
+    tenant_axis: str = "tenants"
+    capacity_factor: float = 2.0  # shardmap's routing capacity (core.distributed)
     chunk_size: int = 1  # K: batches fused per update
     # fully-dynamic modes, mutually exclusive: window=N keeps the newest N
     # inserted edges live (count-based sliding window); decay=D (> 1) gives
@@ -144,7 +174,8 @@ class SnapshotMismatch(ValueError):
 class EngineDiagnostics:
     """The reference's rolling counters, field for field and in its order
     (host-side, not part of the snapshot). The shardmap plan's overflow
-    counters and the device-query fallbacks stay 0 on ``single``."""
+    counters and the device-query fallbacks stay 0 on the other plans and
+    on ``single`` respectively."""
 
     batches_ingested: int = 0
     edges_ingested: int = 0  # max over tenants, per batch
@@ -169,7 +200,7 @@ class StagedChunk:
     ``ready`` is the event the ingest waits for. The host rows stay for the
     window clock (``W_host`` is None on an insertion-only engine)."""
 
-    Wb: torch.Tensor  # (T, K, s, 2) int32
+    Wb: Any  # (T, K, s, 2) int32 tensor, or its per-shard blocks on a sharded plan
     nv: torch.Tensor  # (T, K) int32
     edges: int  # max-over-tenants valid edges of each batch, summed (host-side)
     ready: Any = field(default=None, repr=False)
@@ -191,15 +222,27 @@ class TriangleCountEngine:
     """Streaming triangle counter for a bank of tenants (see module
     docstring)."""
 
-    def __init__(self, config: EngineConfig):
+    def __init__(self, config: EngineConfig, mesh: Any = None):
         self.config = config
+        self.mesh = mesh
         self.device = resolve_device(config.device)
+        if mesh is not None:
+            if any(d.type != self.device.type for d in mesh.devices):
+                raise ValueError(f"mesh devices {[str(d) for d in mesh.devices]} are not "
+                                 f"of the engine's device type {self.device.type!r}")
+            self.device = mesh.devices[0]
         self.scheme: EstimatorScheme = config.resolved_scheme()
         self._ingest_backend = resolve_ingest_backend(config.ingest, self.device)
         self._search = resolve_multisearch_backend(config.multisearch, self.device)
+        self.plan: BackendPlan = select_backend(config, mesh)
+        self._update = self.plan.build(config, mesh, self.scheme)
+        self._update_chunk = (self.plan.build_chunk(config, mesh, self.scheme)
+                              if config.chunk_size > 1 else None)
+        self._delete = None  # the plan's deletion update, built on first use
         self._step = 0  # batches ingested so far: the RNG fold_in counter
         self._dyn_step = 0  # signed batches applied (inserts and deletions)
-        self.diag = EngineDiagnostics(backend="single")
+        self.diag = EngineDiagnostics(backend=self.plan.name)
+        self._pending_overflow: list = []  # shardmap's device scalars, drained lazily
         # the window/decay clock, which runs one tenant: insertions so far
         # (equal to m_seen, kept on the host so no expiry check waits on the
         # device), and the ring of live rows in insertion order: edges
@@ -211,14 +254,45 @@ class TriangleCountEngine:
         self._win_expiry = np.zeros((0,), np.int64)
         self._root_key = torch.stack(
             [rng.PRNGKey(seed, self.device) for seed in config.tenant_seeds()])
-        self._state = self.scheme.init_state(config.r, self.device, config.n_tenants)
+        self._state = self._place(self.scheme.init_state(
+            config.r, self.device, config.n_tenants if self.plan.banked else None))
+        # the device-resident query (None on single and where the scheme's
+        # estimate does not shard: estimate() then gathers)
+        self._estimate_device = (self.plan.build_estimate(config, mesh, self.scheme)
+                                 if self.plan.build_estimate is not None else None)
+        self._query_pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
         # per-step estimate cache {step: answer}: an ingest leaves the previous
         # answer addressable for stale serving (cached_estimate); deletions and
         # restores clear it, as they change the state without a step
         self._est_cache: dict[int, np.ndarray] = {}
+        # chunks are staged on a side stream where every shard is on the
+        # engine's device (one card)
+        one_device = mesh is None or all(d == self.device for d in mesh.devices)
         self._copy_stream = (
-            torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+            torch.cuda.Stream(self.device)
+            if self.device.type == "cuda" and one_device else None
         )
+
+    def _place(self, state: EstimatorState):
+        """A full state laid out as the plan keeps it: one state on the
+        engine's device, or a ShardedState through the plan's layout (each
+        shard's block copied to its device once)."""
+        if self.plan.bank_sharding is None:
+            return EstimatorState(*(x.to(self.device) for x in state))
+        layout = self.plan.bank_sharding(self.config, self.mesh)
+        return ShardedState(layout.shard(state), layout)
+
+    def _bank(self, device) -> EstimatorState:
+        """The whole bank (tenant axis first) on ``device``: gathered from
+        the shards on a sharded plan."""
+        st = self._state
+        if isinstance(st, ShardedState):
+            st = st.gather(device)
+        else:
+            st = EstimatorState(*(x.to(device) for x in st))
+        if not self.plan.banked:
+            st = EstimatorState(*(x[None] for x in st))
+        return st
 
     @property
     def step(self) -> int:
@@ -237,24 +311,40 @@ class TriangleCountEngine:
 
     @property
     def state(self) -> EstimatorState:
-        """The bank: every field leads with the tenant axis."""
+        """The bank: every field leads with the tenant axis (on a sharded
+        plan gathered from the shards to the engine's first device)."""
+        if isinstance(self._state, ShardedState) or not self.plan.banked:
+            return self._bank(self.device)
         return self._state
 
     def edges_seen(self) -> np.ndarray:
         """(n_tenants,) int64: stream length ingested per tenant."""
-        return self._state.m_seen.cpu().numpy().astype(np.int64)
+        st = self._state
+        if isinstance(st, ShardedState):
+            m = torch.cat([st.shards[g[0]].m_seen.reshape(-1).cpu()
+                           for g in st.layout.e_groups()])
+        else:
+            m = st.m_seen.reshape(-1).cpu()
+        return np.broadcast_to(m.numpy().astype(np.int64), (self.n_tenants,)).copy()
 
     # -- host -> device ------------------------------------------------------
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        """Copy a host array (a broadcast view too) to the device through a
-        pinned buffer without blocking the host (a plain copy on the CPU)."""
+    def _upload(self, arr: np.ndarray, device=None) -> torch.Tensor:
+        """Copy a host array (a broadcast view too) to ``device`` (the
+        engine's by default) through a pinned buffer without blocking the
+        host (a plain copy on the CPU)."""
         arr = np.asarray(arr)
-        if self.device.type == "cpu":
+        device = self.device if device is None else torch.device(device)
+        if device.type == "cpu":
             return torch.from_numpy(np.array(arr, order="C"))
         dtype = torch.from_numpy(np.empty(0, arr.dtype)).dtype
         pinned = torch.empty(arr.shape, dtype=dtype, pin_memory=True)
         np.copyto(pinned.numpy(), arr)
-        return pinned.to(self.device, non_blocking=True)
+        return pinned.to(device, non_blocking=True)
+
+    def _put(self, arr: np.ndarray, sharding) -> list:
+        """A host array's per-shard blocks through a plan's input layout,
+        each block uploaded once to its device."""
+        return sharding(self.config, self.mesh).put(np.asarray(arr), self._upload)
 
     def _pad(self, W: np.ndarray) -> tuple[np.ndarray, int]:
         s = self.config.batch_size
@@ -304,14 +394,48 @@ class TriangleCountEngine:
         check_fault("engine.ingest")  # before any conversion or state change
         Wb, nv = self._bank_batch(W, n_valid)
         keys = rng.fold_in(self._root_key, self._step)
-        self._state = self.scheme.bulk_update(self._state, self._upload(Wb), self._counts(nv),
-                                              keys, search=self._search)
+        if not self.plan.banked:  # the single-tenant sharded plans
+            out = self._update(self._state, self._put(Wb[0], self.plan.batch_w_sharding),
+                               int(nv[0]), keys[0])
+        elif self.plan.batch_w_sharding is not None:
+            out = self._update(self._state, self._put(Wb, self.plan.batch_w_sharding),
+                               self._counts(nv), keys)
+        else:
+            out = self._update(self._state, self._upload(Wb), self._counts(nv), keys)
+        if self.plan.reports_overflow:
+            # kept on the device and drained every few batches, so the host
+            # never waits on the device per batch; an escalation lands a few
+            # batches late, and the state stays a valid NBSI realisation
+            self._state, overflow = out
+            self._pending_overflow.append(overflow)
+            if len(self._pending_overflow) >= 8:
+                self._drain_overflow()
+        else:
+            self._state = out
         self._step += 1
         self._dyn_step += 1
         self.diag.batches_ingested += 1
         self.diag.edges_ingested += int(nv.max())
         self._track_inserts(Wb[0], nv[0])
         self._flush_expired()
+
+    def _drain_overflow(self) -> None:
+        if not self._pending_overflow:
+            return
+        pending, self._pending_overflow = self._pending_overflow, []
+        total = sum(int(o) for o in pending)
+        if total > 0:
+            self._escalate_capacity(total)
+
+    def _escalate_capacity(self, overflow: int) -> None:
+        """Hot vertices overflowed a routing bucket (those queries answered
+        0, so the state stays a valid NBSI realisation that lost their
+        samples' contribution): double the buckets for later batches and
+        rebuild the update. The state is untouched."""
+        self.diag.overflow_batches += 1
+        self.diag.capacity_escalations += 1
+        self.config = replace(self.config, capacity_factor=self.config.capacity_factor * 2.0)
+        self._update = self.plan.build(self.config, self.mesh, self.scheme)
 
     def stage_chunk(self, Ws, n_valids=None) -> StagedChunk:
         """Upload a K-batch superbatch ahead of ``ingest_chunk``: (K, s, 2),
@@ -321,8 +445,9 @@ class TriangleCountEngine:
         stream from a pinned buffer, so it overlaps the chunk the device is
         computing."""
         K, s, T = self.config.chunk_size, self.config.batch_size, self.n_tenants
-        if K <= 1:
-            raise ValueError("chunked ingest needs EngineConfig(chunk_size > 1)")
+        if self._update_chunk is None:
+            raise ValueError("chunked ingest needs EngineConfig(chunk_size > 1) on a banked "
+                             "plan ('single' or 'banked_pjit_*')")
         arr = np.asarray(Ws, dtype=np.int32)
         if arr.ndim == 3 and arr.shape == (K, s, 2):
             arr = np.broadcast_to(arr[None], (T, K, s, 2))
@@ -341,10 +466,16 @@ class TriangleCountEngine:
         # max over tenants per batch, summed over K: what K ingest() calls count
         edges = int(nv_host.max(axis=0).sum())
         host = {"W_host": arr if self._dynamic else None, "nv_host": nv_host}
+
+        def upload():
+            if self.plan.chunk_w_sharding is not None:  # host -> shards, a copy each
+                return self._put(arr, self.plan.chunk_w_sharding), self._upload(nv)
+            return self._upload(arr), self._upload(nv)
+
         if self._copy_stream is None:
-            return StagedChunk(self._upload(arr), self._upload(nv), edges, **host)
+            return StagedChunk(*upload(), edges, **host)
         with torch.cuda.stream(self._copy_stream):
-            Wb, nvb = self._upload(arr), self._upload(nv)
+            Wb, nvb = upload()
             ready = torch.cuda.Event()
             ready.record(self._copy_stream)
         return StagedChunk(Wb, nvb, edges, ready, **host)
@@ -361,11 +492,9 @@ class TriangleCountEngine:
         if c.ready is not None:
             cur = torch.cuda.current_stream(self.device)
             cur.wait_event(c.ready)
-            c.Wb.record_stream(cur)
-            c.nv.record_stream(cur)
-        self._state = self.scheme.chunk_update(
-            self._state, c.Wb, c.nv, self._root_key, self._step,
-            backend=self._ingest_backend, search=self._search)
+            for t in (c.Wb if isinstance(c.Wb, list) else [c.Wb]) + [c.nv]:
+                t.record_stream(cur)
+        self._state = self._update_chunk(self._state, c.Wb, c.nv, self._root_key, self._step)
         K = self.config.chunk_size
         self._step += K
         self._dyn_step += K
@@ -405,9 +534,11 @@ class TriangleCountEngine:
         return n
 
     def sync(self) -> None:
-        """Block until all dispatched work has completed on the device."""
+        """Block until all dispatched work has completed on the devices."""
+        self._drain_overflow()
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            for dev in (self.mesh.devices if self.mesh is not None else (self.device,)):
+                torch.cuda.synchronize(dev)
 
     # -- turnstile deletions / windowed expiry -------------------------------
     def _apply_delete(self, Db: np.ndarray, nv: np.ndarray) -> None:
@@ -415,8 +546,12 @@ class TriangleCountEngine:
         the bank through the scheme's ``delete_update``. Internal: the
         explicit ``delete`` and the window clock's flush both come here;
         neither ``dyn_step`` nor the ring is touched."""
-        self._state = self.scheme.delete_update(self._state, self._upload(Db), self._counts(nv),
-                                                search=self._search)
+        if self._delete is None:
+            self._delete = self.plan.build_delete(self.config, self.mesh, self.scheme)
+        if self.plan.banked:
+            self._state = self._delete(self._state, self._upload(Db), self._counts(nv))
+        else:
+            self._state = self._delete(self._state, self._upload(Db[0]), int(nv[0]))
         self._est_cache = {}  # the state changed without a step: cached answers are stale
 
     def delete(self, D: np.ndarray, n_valid: Optional[Any] = None) -> None:
@@ -531,24 +666,64 @@ class TriangleCountEngine:
         step: (T,) float64 for the scalar schemes (the median of means),
         (T, n_vertices) float64 per-vertex counts for ``local``.
 
-        ``gather=True`` bypasses the cache and recomputes (the reference's
-        oracle query; on ``single`` the same program). ``timeout_s`` bounds
-        a sharded plan's device-resident query; ``single`` has none, so it
-        has no effect here. Counted in ``diag.queries_answered`` and, from
-        the cache, ``diag.query_cache_hits``."""
+        On a sharded plan the query runs where the shards live (the plan's
+        device-resident query: per-shard partials and a fixed-order
+        combine), bit-identical to the gather oracle, which ``gather=True``
+        forces: it gathers the shards to the engine's first device and
+        answers as ``single`` does, bypassing the cache. ``timeout_s``
+        bounds the device-resident query; on its expiry, or a fault at the
+        ``engine.estimate`` site, the query falls back to the oracle,
+        counted in ``diag.query_fallbacks`` (and ``diag.query_timeouts``).
+        ``single`` has no device-resident query, so ``timeout_s`` has no
+        effect there. Counted in ``diag.queries_answered`` and, from the
+        cache, ``diag.query_cache_hits``."""
+        self._drain_overflow()
         if not gather:
             cached = self._est_cache.get(self._step)
             if cached is not None:
                 self.diag.queries_answered += 1
                 self.diag.query_cache_hits += 1
                 return cached
-        est = self.scheme.estimate(self._state, self.config.groups,
-                                   backend=self._ingest_backend)
-        out = est.to(torch.float64).cpu().numpy()
+        out = None
+        if not gather and self._estimate_device is not None:
+            try:
+                out = self._query_device(timeout_s)
+                if not self.plan.banked:
+                    out = out[None]
+            except (FaultInjected, TimeoutError) as e:
+                # degrade to the gather oracle below rather than fail the query
+                if isinstance(e, TimeoutError):
+                    self.diag.query_timeouts += 1
+                self.diag.query_fallbacks += 1
+                out = None
+        if out is None:
+            bank = self._state if self.plan.bank_sharding is None else self._bank(self.device)
+            est = self.scheme.estimate(bank, self.config.groups, backend=self._ingest_backend)
+            out = est.to(torch.float64).cpu().numpy()
         self.diag.queries_answered += 1
         if not gather:
             self._est_cache = {self._step: out}
         return out
+
+    def _query_device(self, timeout_s: Optional[float]) -> np.ndarray:
+        """The device-resident query, bounded by ``timeout_s`` where given:
+        it runs on a worker thread, which goes on past the deadline (a
+        device query cannot be cancelled); the caller stops waiting."""
+
+        def call() -> np.ndarray:
+            check_fault("engine.estimate")  # the device dispatch's fault site
+            return self._estimate_device(self._state).to(torch.float64).cpu().numpy()
+
+        if timeout_s is None:
+            return call()
+        if self._query_pool is None:
+            self._query_pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="engine-query")
+        fut = self._query_pool.submit(call)
+        try:
+            return fut.result(timeout=timeout_s)
+        except concurrent.futures.TimeoutError:
+            raise TimeoutError(f"device query exceeded {timeout_s:.3f}s") from None
 
     def cached_estimate(self) -> Optional[tuple[int, np.ndarray]]:
         """The newest cached answer as ``(answer_step, estimates)``, or None
@@ -579,8 +754,10 @@ class TriangleCountEngine:
         the ring, ``window_edges`` (T, C, 2) int32, ``window_expiry`` (T, C)
         int64 (-1 padding) and ``window_len`` (T,) int64, C the window or
         the decay TTL cap."""
+        self._drain_overflow()
         self._flush_expired()  # no dead edge outlives the snapshot
-        snap = {f: getattr(self._state, f).cpu().numpy() for f in _STATE_FIELDS}
+        bank = self._bank(torch.device("cpu"))
+        snap = {f: getattr(bank, f).numpy() for f in _STATE_FIELDS}
         snap["root_keys"] = self._root_key.cpu().numpy().astype(np.uint32)
         snap["step"] = np.int64(self._step)
         snap["dyn_step"] = np.int64(self._dyn_step)
@@ -639,11 +816,18 @@ class TriangleCountEngine:
                                        f"engine needs {shape}")
         dtypes = {"f1": torch.int32, "chi": torch.int32, "f2": torch.int32,
                   "has_f3": torch.bool, "m_seen": torch.int64}
-        self._state = EstimatorState(**{
-            f: torch.from_numpy(np.array(np.asarray(snap[f]))).to(
-                device=self.device, dtype=dtypes[f])
+        host = EstimatorState(**{
+            f: torch.from_numpy(np.array(np.asarray(snap[f]))).to(dtype=dtypes[f])
             for f in _STATE_FIELDS
         })
+        if not self.plan.banked:
+            host = EstimatorState(*(x[0] for x in host))
+        # undrained overflow scalars describe batches before the restore:
+        # draining them later would escalate for a stream this state never saw
+        if self._pending_overflow:
+            self.diag.pending_overflow_dropped += len(self._pending_overflow)
+            self._pending_overflow = []
+        self._state = self._place(host)  # host -> shards directly
         keys = np.asarray(snap["root_keys"]).astype(np.int64)
         self._root_key = torch.from_numpy(keys).to(self.device)
         self._step = int(snap["step"])
@@ -654,7 +838,7 @@ class TriangleCountEngine:
         self._win_edges, self._win_expiry = win_edges, win_expiry
 
     @classmethod
-    def from_snapshot(cls, snap: dict, *, batch_size: Optional[int] = None,
+    def from_snapshot(cls, snap: dict, *, batch_size: Optional[int] = None, mesh: Any = None,
                       **config_kwargs) -> "TriangleCountEngine":
         r, s, t = _snapshot_config(snap)
         if "scheme" not in config_kwargs and "scheme" in snap:
@@ -663,6 +847,6 @@ class TriangleCountEngine:
             config_kwargs["scheme"] = str(np.asarray(snap["scheme"]))
         cfg = EngineConfig(r=r, batch_size=batch_size if batch_size is not None else s,
                            n_tenants=t, **config_kwargs)
-        eng = cls(cfg)
+        eng = cls(cfg, mesh=mesh)
         eng.restore(snap)
         return eng

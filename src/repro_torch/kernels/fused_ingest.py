@@ -17,6 +17,12 @@ reference runs its kernel under ``jax.vmap``): state (T, r, ..), structures
 (T, K, ..), Ws (T, K, s, 2), n_valids (T, K), m_seen (T,), key (T, 2) and
 step0 an int or a (T,) int64 tensor of per-tenant first steps. The kernel
 route is then one launch a batch for all T tenants, as for one.
+
+``e0`` is the global index of the state's first estimator: a shard of a
+sharded plan holding estimators ``[e0, e0 + r)`` draws elements ``e0 ..``
+of each full-r draw, so shards updated apart concatenate to one full-r call
+bit for bit (a bank's tenants share one ``e0``). It is 0 for an unsharded
+state.
 """
 from __future__ import annotations
 
@@ -27,7 +33,7 @@ import torch
 from repro_torch.kernels import _build
 
 Tensor = torch.Tensor
-_ARGS = [ctypes.c_void_p] * 20 + [ctypes.c_int64] * 4 + [ctypes.c_void_p, _build.QUEUED]
+_ARGS = [ctypes.c_void_p] * 20 + [ctypes.c_int64] * 5 + [ctypes.c_void_p, _build.QUEUED]
 
 
 def fused_ingest_hoisted(
@@ -56,21 +62,22 @@ def fused_ingest_hoisted(
 
 def fused_ingest_plain(
     f1, chi, f2, has_f3, key_desc, key_rank, src, dst, pos, ekey, epos,
-    Ws, n_valids, m_seen, key, step0,
+    Ws, n_valids, m_seen, key, step0, e0: int = 0,
 ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
     """The kernel's function in plain PyTorch: the chunk's draws and step-1
     selects (``core.bulk.chunk_draws``), then ``fused_ingest_hoisted``."""
     from repro_torch.core.bulk import chunk_draws
     from repro_torch.core.state import EstimatorState
 
-    draws = chunk_draws(EstimatorState(f1, chi, f2, has_f3, m_seen), Ws, n_valids, key, step0)
+    draws = chunk_draws(EstimatorState(f1, chi, f2, has_f3, m_seen), Ws, n_valids, key, step0,
+                        e0)
     return fused_ingest_hoisted(f1, chi, f2, has_f3, key_desc, key_rank, src, dst, pos,
                                 ekey, epos, *draws)
 
 
 def fused_ingest(
     f1, chi, f2, has_f3, key_desc, key_rank, src, dst, pos, ekey, epos,
-    Ws, n_valids, m_seen, key, step0,
+    Ws, n_valids, m_seen, key, step0, e0: int = 0,
 ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
     """Apply a K-batch chunk to the state; returns new (f1, chi, f2, has_f3).
 
@@ -81,10 +88,11 @@ def fused_ingest(
     stream key, step0 the chunk's first step (batch k draws from
     ``fold_in(key, step0 + k)``); with the tenant axis (module docstring)
     tenant t draws from ``fold_in(key[t], step0[t] + k)``. Everything stays
-    on the device: no host sync. The caller owns the m_seen update."""
+    on the device: no host sync. The caller owns the m_seen update. ``e0``:
+    the module docstring's shards."""
     if f1.device.type == "cpu":
         return fused_ingest_plain(f1, chi, f2, has_f3, key_desc, key_rank, src, dst, pos,
-                                  ekey, epos, Ws, n_valids, m_seen, key, step0)
+                                  ekey, epos, Ws, n_valids, m_seen, key, step0, e0)
     dev = f1.device
     lead = tuple(f1.shape[:-2])
     if len(lead) > 1:
@@ -110,6 +118,9 @@ def fused_ingest(
         step0 = torch.full(lead or (1,), int(step0), dtype=i64, device=dev)
     if s < 1 or 2 * s >= 2**31 or r >= 2**31:
         raise ValueError("fused_ingest: need 1 <= s and r, 2s below 2^31")
+    e0 = int(e0)
+    if e0 < 0 or e0 + r > 2**32:
+        raise ValueError(f"fused_ingest: need 0 <= e0 and e0 + r <= 2^32, got e0={e0}, r={r}")
     f1_out = torch.empty_like(f1)
     chi_out = torch.empty_like(chi)
     f2_out = torch.empty_like(f2)
@@ -123,6 +134,6 @@ def fused_ingest(
         pos.data_ptr(), ekey.data_ptr(), epos.data_ptr(), Ws.data_ptr(),
         n_valids.data_ptr(), m_seen.data_ptr(), key.data_ptr(), f1_out.data_ptr(),
         chi_out.data_ptr(), f2_out.data_ptr(), has_f3_out.data_ptr(),
-        step0.data_ptr(), T, r, K, s, _build.stream_handle(dev),
+        step0.data_ptr(), T, r, K, s, e0, _build.stream_handle(dev),
     )
     return f1_out, chi_out, f2_out, has_f3_out

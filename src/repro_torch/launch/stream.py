@@ -34,6 +34,15 @@ writes the engine's diag, the report's counters and the plan's summary. A
 fault that outlasts the retries ends the run with a traceback and a
 non-zero exit.
 
+Meshes, as in the JAX CLI: ``--mesh`` lays out a one-process device mesh
+(``repro_torch.launch.mesh.make_stream_mesh``: ``8``, ``tenants=2``,
+``tenants=2,estimators=4``), ``--backend`` names the execution plan
+(``auto`` picks one from the mesh, as the reference does), ``--tenant-axis``
+the mesh axis the bank's tenants shard over, and ``--host-devices N`` puts
+all N shards on the one device ``--device`` names (without it a mesh of n
+shards takes n devices). A ``mesh: {..} -> plan ..`` line then follows the
+``stream:`` line.
+
   PYTHONPATH=src python -m repro_torch.launch.stream --graph planted \\
       --triangles 300 --edges 20000 --nodes 30000 --estimators 65536 \\
       --batch 4096 --chunk 4              # on the GPU
@@ -48,6 +57,9 @@ non-zero exit.
   PYTHONPATH=src python -m repro_torch.launch.stream --device cpu --graph ba \\
       --nodes 500 --estimators 4096 --batch 512 --chunk 2 --retry-base 0.001 \\
       --fault-plan engine.ingest_chunk:raise@1,prefetch.get:dup@2 --diag-json diag.json
+  PYTHONPATH=src python -m repro_torch.launch.stream --device cpu --graph ba \
+      --nodes 500 --estimators 4096 --batch 512 --chunk 2 --tenants 4 \
+      --host-devices 4 --mesh tenants=2,estimators=2   # tenant-sharded bank
 """
 from __future__ import annotations
 
@@ -81,6 +93,7 @@ from repro_torch.engine import (
     run_stream,
 )
 from repro_torch.engine.faults import active_fault_plan
+from repro_torch.launch.mesh import make_stream_mesh
 
 
 def make_stream(args):
@@ -265,6 +278,16 @@ def main(argv=None) -> None:
                     help="independent estimator banks over the same stream, seeded "
                          "--seed + t")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--backend", default="auto",
+                    help="auto or any name in repro_torch.engine.backends.BACKENDS")
+    ap.add_argument("--mesh", default="",
+                    help="device mesh spec, e.g. '8' or 'tenants=2,estimators=4' "
+                         "(repro_torch.launch.mesh.make_stream_mesh)")
+    ap.add_argument("--tenant-axis", default="tenants",
+                    help="mesh axis carrying the bank's tenant dimension")
+    ap.add_argument("--host-devices", type=int, default=0,
+                    help="put all N shards of the mesh on the one --device (a mesh "
+                         "on one card, or on the CPU)")
     add_scheme_flags(ap)
     add_dynamic_flags(ap)
     add_resilience_flags(ap)
@@ -293,12 +316,16 @@ def main(argv=None) -> None:
     else:
         print(f"stream: m={len(edges)} tau={tau}", flush=True)
     install_cli_fault_plan(args)
+    mesh = make_stream_mesh(args.mesh, device=args.device, host_devices=args.host_devices)
     engine = TriangleCountEngine(EngineConfig(
         r=args.estimators, batch_size=args.batch, groups=args.groups,
         n_tenants=args.tenants, seeds=tuple(args.seed + t for t in range(args.tenants)),
+        backend=args.backend, tenant_axis=args.tenant_axis,
         chunk_size=args.chunk, window=args.window, decay=args.decay,
         device=args.device, **scheme_args(args),
-    ))
+    ), mesh=mesh)
+    if mesh is not None:
+        print(f"mesh: {dict(mesh.shape)} -> plan {engine.plan.name}", flush=True)
     ckpt = {"ckpt_dir": args.ckpt_dir if args.ckpt_every else None,
             "ckpt_every": args.ckpt_every, "resilience": resilience_from_args(args)}
     if args.deletions:

@@ -58,3 +58,42 @@ def multisearch_lt(
 
         return multisearch_counts(sorted_keys, queries)[0]
     return torch.searchsorted(sorted_keys, queries, side="left", out_int32=True)
+
+
+def exact_from_lt(sorted_keys: Tensor, queries: Tensor, lt: Tensor,
+                  valid_n=None) -> tuple[Tensor, Tensor]:
+    """``exact_multisearch``'s answer from the queries' left insertion
+    points ``lt`` (for callers that fuse that search with others)."""
+    n = sorted_keys.shape[-1]
+    if n == 0:
+        miss = torch.zeros_like(queries, dtype=torch.bool)
+        return torch.full_like(queries, -1, dtype=torch.int64), miss
+    i = lt.to(torch.int64)
+    i_c = torch.clamp(i, max=n - 1)
+    found = (i < n) & (torch.gather(sorted_keys, -1, i_c) == queries)
+    if valid_n is not None:
+        found = found & (i < valid_n)
+    return torch.where(found, i_c, torch.full_like(i_c, -1)), found
+
+
+def exact_multisearch(sorted_keys: Tensor, queries: Tensor, valid_n=None,
+                      backend: str = "auto") -> tuple[Tensor, Tensor]:
+    """For each query, the index of an equal key in ``sorted_keys`` (its
+    first, the left insertion point) or -1, and whether it was found.
+    ``valid_n``: only the first ``valid_n`` keys are real (the rest are
+    sentinel padding) and matches past it are rejected."""
+    return exact_from_lt(sorted_keys, queries, multisearch_lt(sorted_keys, queries, backend),
+                         valid_n)
+
+
+def count_eq(sorted_keys: Tensor, queries: Tensor, backend: str = "auto") -> Tensor:
+    """The number of keys equal to each query (degree queries), int32."""
+    lt, le = multisearch_bounds(sorted_keys, queries, backend)
+    return le - lt
+
+
+def predecessor_multisearch(sorted_keys: Tensor, queries: Tensor,
+                            backend: str = "auto") -> Tensor:
+    """Index of the last key <= each query, or -1 where every key is greater
+    (predEQMultiSearch), int32."""
+    return multisearch_bounds(sorted_keys, queries, backend)[1] - 1

@@ -23,6 +23,12 @@ def unpack2(key: Tensor) -> tuple[Tensor, Tensor]:
     return (key >> 32).to(torch.int32), (key & 0xFFFFFFFF).to(torch.int32)
 
 
+def composite_key(major: Tensor, minor: Tensor, minor_bound: int) -> Tensor:
+    """``major * minor_bound + minor`` as int64; requires 0 <= minor <
+    minor_bound."""
+    return major.to(torch.int64) * int(minor_bound) + minor.to(torch.int64)
+
+
 def sort_by_key(keys: Tensor, *values: Tensor) -> tuple[Tensor, ...]:
     """Sort ``keys`` ascending along the last axis and apply the same
     permutation to each of ``values``. Stable, like ``jnp.argsort``: step 3

@@ -76,11 +76,15 @@ def split(key: Tensor, num: int = 2) -> Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
-def _block(key: Tensor, shape: tuple[int, ...]) -> tuple[Tensor, Tensor]:
+def _block(key: Tensor, shape: tuple[int, ...], offset: int = 0) -> tuple[Tensor, Tensor]:
+    """Threefry blocks of the counters ``offset .. offset + n - 1`` (n the
+    shape's size): elements ``offset ..`` of a longer draw from the same key,
+    so a shard holding estimators ``[o, o + r_local)`` draws its slice of
+    the full-r draw with ``offset=o``."""
     n = 1
     for d in shape:
         n *= int(d)
-    idx = torch.arange(n, dtype=torch.int64, device=key.device)
+    idx = torch.arange(int(offset), int(offset) + n, dtype=torch.int64, device=key.device)
     lead = key.shape[:-1]
     k1 = key[..., 0].reshape(lead + (1,))
     k2 = key[..., 1].reshape(lead + (1,))
@@ -88,31 +92,32 @@ def _block(key: Tensor, shape: tuple[int, ...]) -> tuple[Tensor, Tensor]:
     return y0.reshape(lead + tuple(shape)), y1.reshape(lead + tuple(shape))
 
 
-def bits32(key: Tensor, shape: tuple[int, ...]) -> Tensor:
-    """``jax.random.bits(key, shape, uint32)`` as int64 values in [0, 2**32)."""
-    y0, y1 = _block(key, shape)
+def bits32(key: Tensor, shape: tuple[int, ...], offset: int = 0) -> Tensor:
+    """``jax.random.bits(key, shape, uint32)`` as int64 values in [0, 2**32);
+    ``offset`` starts the draw at that element of a longer one (``_block``)."""
+    y0, y1 = _block(key, shape, offset)
     return y0 ^ y1
 
 
-def bits64(key: Tensor, shape: tuple[int, ...]) -> Tensor:
+def bits64(key: Tensor, shape: tuple[int, ...], offset: int = 0) -> Tensor:
     """``jax.random.bits(key, shape, uint64)``, carried as the int64 with the
     same bits."""
-    y0, y1 = _block(key, shape)
+    y0, y1 = _block(key, shape, offset)
     return (y0 << 32) | y1
 
 
-def uniform(key: Tensor, shape: tuple[int, ...]) -> Tensor:
+def uniform(key: Tensor, shape: tuple[int, ...], offset: int = 0) -> Tensor:
     """``jax.random.uniform(key, shape, float32)`` on [0, 1): the top 23 bits
     as the mantissa of a float in [1, 2), minus 1."""
-    b = (bits32(key, shape) >> 9) | 0x3F800000
+    b = (bits32(key, shape, offset) >> 9) | 0x3F800000
     return b.to(torch.int32).view(torch.float32) - 1.0
 
 
-def uniform64(key: Tensor, shape: tuple[int, ...]) -> Tensor:
+def uniform64(key: Tensor, shape: tuple[int, ...], offset: int = 0) -> Tensor:
     """``jax.random.uniform(key, shape, float64)`` on [0, 1), the default
     dtype under x64: the top 52 bits of a 64-bit draw as the mantissa of a
     float in [1, 2), minus 1 (the shift is logical, hence the mask)."""
-    b = ((bits64(key, shape) >> 12) & ((1 << 52) - 1)) | 0x3FF0000000000000
+    b = ((bits64(key, shape, offset) >> 12) & ((1 << 52) - 1)) | 0x3FF0000000000000
     return b.view(torch.float64) - 1.0
 
 
@@ -140,24 +145,26 @@ def _urem64(x: Tensor, d: Tensor) -> Tensor:
     return torch.where(over >= 0, over, a + b)
 
 
-def randint32(key: Tensor, maxval: Tensor, shape: tuple[int, ...]) -> Tensor:
+def randint32(key: Tensor, maxval: Tensor, shape: tuple[int, ...],
+              offset: int = 0) -> Tensor:
     """``jax.random.randint(key, shape, 0, maxval, int32)`` with a span per
     lane (``maxval`` broadcasts to ``shape``); int32 result."""
     k = split(key)
-    hi = bits32(k[..., 0, :], shape)
-    lo = bits32(k[..., 1, :], shape)
+    hi = bits32(k[..., 0, :], shape, offset)
+    lo = bits32(k[..., 1, :], shape, offset)
     maxval = maxval.to(torch.int64)
     span = torch.where(maxval <= 0, torch.ones_like(maxval), maxval)
     return span_offset32(hi, lo, span).to(torch.int32)
 
 
-def randint64(key: Tensor, maxval: Tensor, shape: tuple[int, ...]) -> Tensor:
+def randint64(key: Tensor, maxval: Tensor, shape: tuple[int, ...],
+              offset: int = 0) -> Tensor:
     """``jax.random.randint(key, shape, 0, maxval, int64)``: the same
     two-draw construction over 64-bit words, with wrapping int64 ``*``/``+``
     and the unsigned remainder emulated by ``_urem64``."""
     k = split(key)
-    hi = bits64(k[..., 0, :], shape)
-    lo = bits64(k[..., 1, :], shape)
+    hi = bits64(k[..., 0, :], shape, offset)
+    lo = bits64(k[..., 1, :], shape, offset)
     maxval = maxval.to(torch.int64)
     span = torch.where(maxval <= 0, torch.ones_like(maxval), maxval)
     span = span.expand(hi.shape)

@@ -226,12 +226,25 @@ def test_scheme_registry_errors_match_jax():
 
 
 def test_unported_scheme_stages_name_their_roadmap_item():
-    for sch in (schemes.GlobalScheme(), schemes.LocalScheme(n_vertices=4)):
-        for call, item in ((lambda: sch.axis_roles(), "A.13"),
-                           (lambda: sch.partial_estimate(None, offset=0, r=4), "A.13"),
-                           (lambda: sch.combine_estimates(None, r=4), "A.13")):
-            with pytest.raises(NotImplementedError, match=item):
-                call()
+    """The distributed stages that ROADMAP A.13 named are ported: each
+    scheme's axis roles, update kind and shardable flag are the reference's,
+    and the base scheme, which has no query, raises the reference's text."""
+    for ours, ref in ((schemes.GlobalScheme(), jschemes.GlobalScheme()),
+                      (schemes.NaiveScheme(), jschemes.NaiveScheme()),
+                      (schemes.LocalScheme(n_vertices=4), jschemes.LocalScheme(n_vertices=4))):
+        assert tuple(ours.axis_roles()) == tuple(ref.axis_roles())
+        assert ours.axis_roles()._fields == ref.axis_roles()._fields
+        assert (ours.update_kind, ours.shardable_estimate) == (
+            ref.update_kind, ref.shardable_estimate)
+    for call, jcall in ((lambda s: s.partial_estimate(None, offset=0, r=4),
+                         lambda s: s.partial_estimate(None, offset=0, r=4)),
+                        (lambda s: s.combine_estimates(None, r=4),
+                         lambda s: s.combine_estimates(None, r=4))):
+        with pytest.raises(NotImplementedError) as got:
+            call(schemes.EstimatorScheme())
+        with pytest.raises(NotImplementedError) as want:
+            jcall(jschemes.EstimatorScheme())
+        assert str(got.value) == str(want.value)
 
 
 def test_local_triangle_counts_match_jax():
