@@ -138,6 +138,26 @@ Phases, each of which raises on failure (nothing is caught):
              device-busy ms and shardmap's routing-copy share, and the
              kernels-line row of fused_ingest on (c)'s shard at e0 = r/2
              beside its time at e0 = 0;
+  elastic_full  the elastic serving tier at the same width, kernel route:
+             (a) the churn drill: an ElasticBankEngine of capacity 4 on
+             single behind an ElasticServeLoop (stall policy, depth 64),
+             eight sessions seeded 7-14 on tenants_full's four streams
+             (session i on stream i mod 4), a rolling query every 4 batches,
+             session 0 snapshotted, evicted and restored after batch 4
+             through a CheckpointManager, one engine.ingest_chunk raise
+             retried: sessions 0-3 end in tenants_full (a)'s states, 4-7 in
+             one-tenant engines seeded 11-14, every rel.err within 5%, and
+             after the tier's warm-up no kernel library built or loaded and
+             no tier built; (b) a fifth tenant into the full bank: capacity
+             8, exactly one new tier, the residents unchanged; (c) the
+             per-batch route with a tenant joining three batches late; (d)
+             banked_pjit_coordinated on tenants=2,estimators=2 (4 shards),
+             capacity 2; (e) a local tenant whose per-vertex estimate is
+             phase local_full's. (c)-(e) each equal the earlier phase. It
+             records host seconds, aggregate edges/s, the queries' latency,
+             peak bytes, a chunk dispatch's time and device busy ms beside
+             tenants_full's, the grow's seconds, a snapshot_tenant's ms and
+             the allocator segments the churn created;
   kernels    each kernel and its plain version at the main path's full-size
              shapes: equal, and timed with CUDA events beside its bound and,
              where one PyTorch call computes the same function, that call;
@@ -168,7 +188,11 @@ Phases, each of which raises on failure (nothing is caught):
              and --diag-json blocks (golden/resilience_small.json), and for a
              bank of 4 on --mesh tenants=2,estimators=2 --host-devices 4 the
              JAX CLI's mesh: and estimate[tenant t] lines
-             (golden/plans_small.json).
+             (golden/plans_small.json); python -m
+             repro_torch.launch.stream_serve prints the JAX serving CLI's
+             rolling query lines and, under --elastic with a fault plan, its
+             session, snapshot-drill and served lines
+             (golden/serve_small.json).
 
 Tolerance: exact. Every kernel computes integer or bit-defined results
 (segment_sum sums integer-valued float64 below 2^53, where any order of its
@@ -186,6 +210,7 @@ import itertools
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1762,6 +1787,8 @@ def phase_tenants_full(dev, full: dict, local: dict, dynamic: dict) -> dict:
           "global": global_out, "local": local_out, "burst": burst_out, "ok": True})
     launches_all = {k: launches[k] + launches_l[k] + launches_b[k] for k in launches}
     return {"launches": launches_all, "state": state, "streams": streams, "keys": keys,
+            "chunk_ms": splits["chunk_ms"]["bank"],
+            "chunk_busy_ms": splits["chunk_profile"]["bank"]["device_busy_ms"],
             "local_state": lbank.state, "local_scheme": lbank.scheme, "digests": digests,
             "local_estimates": est_l}
 
@@ -2026,6 +2053,274 @@ def phase_plans_full(dev, card: str, full: dict, tenants: dict) -> list:
     emit({"phase": "plans_full", "card": card, "shards": 4, "host_devices": 4, "r": r, "s": s,
           "K": K, "m": m, "tau": tau, **out, "ok": True})
     return [row]
+
+
+def phase_elastic_full(dev, card: str, full: dict, local: dict, tenants: dict) -> None:
+    """The elastic serving tier at the full width (r = 2^21, s = 2^20,
+    K = 4), kernel route (the default on the card), each part zeroing the launch counts just before
+    it and requiring its path's kernels just after: (a) the churn drill: an
+    ElasticBankEngine of capacity 4 on ``single`` behind an ElasticServeLoop
+    (stall, depth 64): eight sessions seeded 7-14, session i on
+    tenants_full's stream i mod 4, a rolling query every 4 batches, session
+    0 snapshotted, evicted and restored after batch 4 through a
+    CheckpointManager, one engine.ingest_chunk raise retried. Sessions 0-3
+    end in tenants_full (a)'s tenant states, sessions 4-7 in one-tenant
+    engines seeded 11-14 on their streams; every rel.err within
+    REL_ERR_LIMIT; after the tier's warm-up no kernel library is built or
+    loaded and no tier built. (b) A fifth tenant into the full bank: the
+    capacity doubles with exactly one new tier and the residents' states
+    unchanged. (c) The per-batch route (chunk 1) with a tenant that joins
+    three batches late: each equals tenants_full. (d) banked_pjit_coordinated
+    on ``tenants=2,estimators=2`` (4 shards of this card), capacity 2: each
+    tenant equals tenants_full. (e) A ``local`` tenant seeded 7: its
+    per-vertex estimate equals phase local_full's. Records host seconds,
+    aggregate edges/s, the queries' latency from ``query()`` to the answer,
+    peak bytes, one chunk dispatch's time and device busy ms beside
+    tenants_full's, the grow's seconds, a snapshot_tenant's ms, and the
+    allocator segments the steady churn created."""
+    import torch
+
+    from repro_torch.data.graph_stream import batches
+    from repro_torch.engine import (
+        ElasticBankEngine,
+        ElasticServeLoop,
+        EngineConfig,
+        ResilienceConfig,
+        RetryPolicy,
+        TriangleCountEngine,
+        install_fault_plan,
+        parse_fault_plan,
+        run_stream,
+    )
+    from repro_torch.interop import state_sha256
+    from repro_torch.kernels import LAUNCHES, LIBRARY_EVENTS, reset_launches
+    from repro_torch.launch.mesh import make_stream_mesh
+    from repro_torch.launch.stream_serve import _Session, drive_sessions
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    s, K, r, T = FULL["s"], FULL["K"], FULL["r"], FULL["tenants"]
+    tau, m = full["tau"], len(full["edges"])
+    streams, digests = tenants["streams"], tenants["digests"]
+    its = [list(batches(e, s)) for e in streams]
+    chunk_kernels = ("fused_ingest", "bitonic_sort_tiles", "segscan", "segmented_max_scan")
+    batch_kernels = ("multisearch_counts", "bitonic_sort_tiles", "segscan")
+
+    def bank(capacity, chunk=K, **kw):
+        return ElasticBankEngine(r, s, capacity=capacity, chunk_size=chunk,
+                                 groups=FULL["groups"], device=dev.type, **kw)
+
+    def sha(b, tid):
+        return state_sha256(b.snapshot_tenant(tid))
+
+    def counted(name, kernels, drive):
+        """Run ``drive`` with the launch counts zeroed just before and read
+        just after; every kernel of its path must have launched."""
+        torch.cuda.synchronize(dev)
+        reset_launches()
+        out = drive()
+        torch.cuda.synchronize(dev)
+        launches = dict(LAUNCHES)
+        missing = [k for k in kernels if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"elastic_full {name}: kernels never launched: {missing}")
+        return out, launches
+
+    out = {}
+    # (a) the churn drill
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    drill = bank(4)
+    events0 = dict(LIBRARY_EVENTS)
+    segments0 = torch.cuda.memory_stats(dev)["segment.all.allocated"]
+    ckpt_dir = tempfile.mkdtemp(prefix="elastic_full_")
+    finals, restored, latencies = {}, [], []
+    loop = ElasticServeLoop(drill, queue_depth=64, queue_policy="stall",
+                            resilience=ResilienceConfig(retry=RetryPolicy(base_s=0.001,
+                                                                          seed=FULL["seed"])),
+                            checkpoint=CheckpointManager(ckpt_dir, async_save=True))
+    query = loop.query
+
+    def timed_query(tid):
+        t0 = time.perf_counter()
+        fut = query(tid)
+        fut.add_done_callback(lambda f: latencies.append(time.perf_counter() - t0))
+        return fut
+
+    loop.query = timed_query
+    sessions = [_Session(f"s{i}", FULL["seed"] + i, its[i % T], snap_at=4 if i == 0 else 0)
+                for i in range(2 * T)]
+
+    def final(sess, answer):
+        # the session's whole stream is ingested: its state, before the evict
+        snap = loop.snapshot_tenant(sess.tid).result(60)
+        finals[sess.tid] = (answer["estimate"], state_sha256(snap))
+
+    def drive():
+        install_fault_plan(parse_fault_plan("engine.ingest_chunk:raise@1", seed=FULL["seed"]))
+        loop.start()
+        t0 = time.perf_counter()
+        try:
+            drive_sessions(loop, drill, list(sessions), report_every=4, save=True,
+                           on_restore=lambda sess, step: restored.append([sess.tid, step]),
+                           on_final=final)
+            loop.drain()
+        finally:
+            stats = loop.stop()
+            install_fault_plan(None)
+        return stats, time.perf_counter() - t0
+
+    try:
+        (stats, drill_s), launches_a = counted("drill", chunk_kernels, drive)
+    finally:
+        shutil.rmtree(ckpt_dir)
+    peak_a = torch.cuda.max_memory_allocated(dev)
+    events1 = dict(LIBRARY_EVENTS)
+    segments1 = torch.cuda.memory_stats(dev)["segment.all.allocated"]
+    if events1 != events0 or drill.diag.tier_compiles != 1:
+        raise AssertionError(f"elastic_full drill: kernel libraries {events0} -> {events1}, "
+                             f"tier builds {drill.diag.tier_compiles}")
+    if stats.retries != 1 or restored != [["s0", 4]] or len(finals) != 2 * T:
+        raise AssertionError(f"elastic_full drill: retries {stats.retries}, restores {restored},"
+                             f" {len(finals)} sessions finished")
+    # sessions 0-3 end in tenants_full (a)'s states, 4-7 in one-tenant
+    # engines seeded 11-14 on streams 0-3
+    t0 = time.perf_counter()
+    rel = {}
+    for i, sess in enumerate(sessions):
+        est, digest = finals[sess.tid]
+        if i < T:
+            want_digest, want_est = digests[i], None
+        else:
+            one = TriangleCountEngine(EngineConfig(
+                r=r, batch_size=s, chunk_size=K, groups=FULL["groups"], seeds=(sess.seed,),
+                device=dev.type, ingest="kernel", multisearch="kernel"))
+            run_stream(one, batches(streams[i - T], s))
+            want_digest, want_est = state_sha256(one.snapshot()), float(one.estimate()[0])
+            del one
+        if digest != want_digest or (want_est is not None and float(est) != want_est):
+            raise AssertionError(f"elastic_full drill: session {sess.tid} differs from the "
+                                 "engine it is held to")
+        rel[sess.tid] = abs(float(est) - tau) / tau
+        if rel[sess.tid] > REL_ERR_LIMIT:
+            raise AssertionError(f"elastic_full drill: {sess.tid} rel.err {rel[sess.tid]:.4%}")
+    out["drill"] = {"sessions": 2 * T, "capacity": 4, "seconds": drill_s,
+                    "edges_per_s_aggregate": 2 * T * m / drill_s,
+                    "queries": stats.queries_answered, "query_latency_ms": {
+                        "p50": float(np.percentile(latencies, 50)) * 1e3,
+                        "p99": float(np.percentile(latencies, 99)) * 1e3,
+                        "max": max(latencies) * 1e3, "n": len(latencies)},
+                    "ticks": stats.ticks, "ingest_dispatches": stats.ingest_dispatches,
+                    "batches": stats.batches, "retries": stats.retries, "restored": restored,
+                    "rel_err": rel, "peak_device_bytes": peak_a, "launches": launches_a,
+                    "library_events": events1, "tier_compiles": drill.diag.tier_compiles,
+                    "allocator_segments_created": segments1 - segments0,
+                    "queue": loop.queues.diag(), "sessions_0_3_equal_tenants_full": True,
+                    "sessions_4_7_equal_one_tenant_engines": True,
+                    "check_seconds": time.perf_counter() - t0}
+    loop.query = query
+
+    # (b) one chunk dispatch at capacity 4, then the grow
+    for t in range(T):
+        drill.hot_add(f"g{t}", seed=FULL["seed"] + t)
+    work = {f"g{t}": its[t][:K] for t in range(T)}
+    chunk_ms = time_ms(lambda: drill.ingest_chunk(work), reps=3, warmup=1)
+    chunk_profile = device_busy(lambda: drill.ingest_chunk(work))
+    before = [sha(drill, f"g{t}") for t in range(T)]
+    snap_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        drill.snapshot_tenant("g0")
+        snap_ms.append((time.perf_counter() - t0) * 1e3)
+    events2 = dict(LIBRARY_EVENTS)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    drill.hot_add("g4", seed=FULL["seed"] + T)
+    drill.sync()
+    grow_s = time.perf_counter() - t0
+    if (drill.capacity, drill.diag.tier_compiles, drill.diag.grows) != (8, 2, 1) or \
+            [sha(drill, f"g{t}") for t in range(T)] != before:
+        raise AssertionError(f"elastic_full grow: capacity {drill.capacity}, "
+                             f"{drill.diag.tier_compiles} tiers, residents changed?")
+    out["grow"] = {"seconds": grow_s, "capacity": [4, 8], "tier_compiles": 2,
+                   "residents_unchanged": True,
+                   "library_events_in_grow": {k: LIBRARY_EVENTS[k] - events2[k]
+                                              for k in events2},
+                   "chunk_dispatch_ms": chunk_ms, "chunk_dispatch_profile": chunk_profile,
+                   "tenants_full_bank_chunk_ms": tenants["chunk_ms"],
+                   "tenants_full_bank_chunk_busy_ms": tenants["chunk_busy_ms"],
+                   "snapshot_tenant_ms": snap_ms}
+    del drill, work
+
+    # (c) the per-batch route, a tenant joining three batches late
+    def per_batch():
+        b = bank(2, chunk=1)
+        b.hot_add("a", seed=FULL["seed"])
+        for i in range(len(its[0]) + 3):
+            items = {}
+            if i < len(its[0]):
+                items["a"] = its[0][i]
+            if i == 3:
+                b.hot_add("b", seed=FULL["seed"] + 1)
+            if i >= 3:
+                items["b"] = its[1][i - 3]
+            b.ingest(items)
+        b.sync()
+        return b
+
+    t0 = time.perf_counter()
+    pb, launches_c = counted("per-batch", batch_kernels, per_batch)
+    pb_s = time.perf_counter() - t0
+    if [sha(pb, "a"), sha(pb, "b")] != digests[:2]:
+        raise AssertionError("elastic_full per-batch: tenants differ from tenants_full")
+    out["per_batch"] = {"seconds": pb_s, "dispatches": len(its[0]) + 3,
+                        "launches": launches_c, "tenants_equal": True}
+    del pb
+
+    # (d) the tenant-sharded bank on 4 shards of this card
+    def sharded():
+        mesh = make_stream_mesh("tenants=2,estimators=2", device=dev, host_devices=4)
+        b = bank(2, backend="banked_pjit_coordinated", mesh=mesh)
+        for t in range(2):
+            b.hot_add(t, seed=FULL["seed"] + t)
+        for lo in range(0, len(its[0]), K):
+            b.ingest_chunk({t: its[t][lo:lo + K] for t in range(2)})
+        b.sync()
+        return b
+
+    t0 = time.perf_counter()
+    sb, launches_d = counted("sharded", chunk_kernels, sharded)
+    sb_s = time.perf_counter() - t0
+    if sb.backend != "banked_pjit_coordinated" or [sha(sb, 0), sha(sb, 1)] != digests[:2]:
+        raise AssertionError("elastic_full sharded: tenants differ from tenants_full")
+    if not np.array_equal(sb.estimate(), sb.estimate(gather=True)):
+        raise AssertionError("elastic_full sharded: device query differs from the oracle")
+    out["sharded"] = {"plan": sb.backend, "seconds": sb_s, "launches": launches_d,
+                      "tenants_equal": True}
+    del sb
+
+    # (e) a local tenant: its per-vertex estimate is phase local_full's
+    def local_tenant():
+        b = bank(2, scheme="local",
+                 scheme_params=(("n_pools", FULL["pools"]), ("n_vertices", FULL["vertices"])))
+        b.hot_add("v", seed=FULL["seed"])
+        for lo in range(0, len(its[0]), K):
+            b.ingest_chunk({"v": its[0][lo:lo + K]})
+        return b, b.estimate_tenant("v")
+
+    (lb, est_l), launches_e = counted("local", ("multisearch_counts", "segment_sum"),
+                                      local_tenant)
+    if sha(lb, "v") != local["digest"] or not np.array_equal(est_l, local["estimate"]):
+        raise AssertionError("elastic_full local: differs from phase local_full")
+    out["local"] = {"launches": launches_e, "equals_local_full": True}
+    del lb
+    launches_all = {k: launches_a[k] + launches_c[k] + launches_d[k] + launches_e[k]
+                    for k in launches_a}
+    missing = [k for k in KERNELS if launches_all[k] == 0]
+    if missing:
+        raise AssertionError(f"elastic_full: kernels never launched on the elastic path: "
+                             f"{missing}")
+    emit({"phase": "elastic_full", "card": card, "r": r, "s": s, "K": K, "m": m, "tau": tau,
+          **out, "launches": launches_all, "ok": True})
 
 
 def bank_kernel_rows(dev, tenants: dict) -> list:
@@ -2489,6 +2784,13 @@ def cli_lines(args) -> list:
     return lines
 
 
+def serve_cli(args) -> str:
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.stream_serve", *args],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600, check=True).stdout
+
+
 def phase_cli() -> None:
     gold = json.loads((ROOT / "src/repro_torch/golden/stream_small.json").read_text())
     lines = cli_lines(gold["cli"]["args"])
@@ -2523,9 +2825,26 @@ def phase_cli() -> None:
     plan_lines = [ln for ln in lines if ln.startswith(("mesh:", "estimate"))]
     if plan_lines != plans["lines"]:
         raise AssertionError(f"cli: mesh lines {plan_lines} != JAX CLI {plans['lines']}")
+    # the serving CLI: the fixed bank's rolling queries, and the elastic
+    # churn with its checkpointed snapshot drill under a fault plan
+    serve = json.loads((ROOT / "src/repro_torch/golden/serve_small.json").read_text())
+    fixed = [ln for ln in serve_cli(serve["fixed"]["args"]).splitlines()
+             if ln.startswith(("stream:", "query step="))]
+    if fixed != serve["fixed"]["lines"]:
+        raise AssertionError(f"cli: serve lines {fixed} != JAX CLI {serve['fixed']['lines']}")
+    ckpt_dir = tempfile.mkdtemp(prefix="serve_cli_")
+    try:
+        text = serve_cli([*serve["elastic"]["args"], "--ckpt-dir", ckpt_dir])
+    finally:
+        shutil.rmtree(ckpt_dir)
+    lines = [re.sub(r" in [0-9.]+s", "", ln) for ln in text.splitlines()]
+    elastic = {"lines": [ln for ln in lines if not ln.startswith("session ")],
+               "sessions": sorted(ln for ln in lines if ln.startswith("session "))}
+    if elastic != {"lines": serve["elastic"]["lines"], "sessions": serve["elastic"]["sessions"]}:
+        raise AssertionError(f"cli: elastic serve lines {elastic} != JAX CLI {serve['elastic']}")
     emit({"phase": "cli", "estimate_line": est_line, "local_line": local_line,
           "resilience_lines": got, "diag_report": diag["report"], "mesh_lines": plan_lines,
-          "ok": True})
+          "serve_lines": fixed, "elastic_serve": elastic, "ok": True})
 
 
 def main() -> int:
@@ -2556,6 +2875,7 @@ def main() -> int:
     phase_chaos_full(dev, card, full, dynamic)
     tenants = phase_tenants_full(dev, full, local, dynamic)
     plan_rows = phase_plans_full(dev, card, full, tenants)
+    phase_elastic_full(dev, card, full, local, tenants)
     rows = phase_kernels(dev, full, local, dynamic)
     rows += bank_kernel_rows(dev, tenants) + plan_rows
     phase_cli()

@@ -22,8 +22,9 @@ reference:
   * ``backlog()`` is the queue's depth, the service loops' backpressure
     signal.
 
-``stack_batches`` / ``superbatches`` assemble K ``(W, n_valid)`` batches into
-the unit ``TriangleCountEngine.ingest_chunk`` consumes.
+``TenantQueues`` holds the elastic serving tier's bounded per-tenant
+queues. ``stack_batches`` / ``superbatches`` assemble K ``(W, n_valid)``
+batches into the unit ``TriangleCountEngine.ingest_chunk`` consumes.
 """
 from __future__ import annotations
 
@@ -144,6 +145,98 @@ class PrefetchQueue:
         """Entries queued ahead of the consumer (the end marker counts
         until it is taken): the service loops' backpressure signal."""
         return self.q.qsize()
+
+
+class TenantQueues:
+    """Bounded per-tenant ingest queues for the elastic serving tier
+    (``repro_torch.engine.service.ElasticServeLoop``).
+
+    Each resident tenant gets one FIFO capped at ``depth`` batches, so a
+    stalled or flooding tenant cannot grow host memory without bound. When a
+    queue is full ``put`` applies the overflow ``policy``: ``"drop"``
+    discards the newest batch (the arriving one) and counts it in
+    ``dropped``; ``"stall"`` refuses it (returns False) and counts the
+    refusal in ``stalls``, and the producer owns the retry. The consumer
+    (``take``) dequeues up to ``chunk_size`` batches per tick, oldest first,
+    front-packed for the fused dispatch.
+
+    Thread-safe: producers ``put`` while the serve loop's consumer thread
+    ``take``s; every access to ``_queues``, ``dropped`` and ``stalls`` holds
+    the lock. A dropped batch breaks that tenant's exactly-once stream by
+    design (load shedding, visible in ``dropped``); accuracy-sensitive
+    producers run ``"stall"`` and retry.
+    """
+
+    def __init__(self, depth: int = 64, policy: str = "drop"):
+        if depth < 1:
+            raise ValueError(f"depth must be >= 1, got {depth}")
+        if policy not in ("drop", "stall"):
+            raise ValueError(f"policy must be 'drop' or 'stall', got {policy!r}")
+        self.depth = depth
+        self.policy = policy
+        self._lock = threading.Lock()
+        self.dropped = 0  # batches shed by the 'drop' policy (newest first)
+        self.stalls = 0  # puts refused by the 'stall' policy (backpressure)
+        self._queues: dict = {}
+
+    def add_tenant(self, tid) -> None:
+        with self._lock:
+            self._queues.setdefault(tid, [])
+
+    def remove_tenant(self, tid) -> int:
+        """Drop a tenant's queue; returns how many pending batches died with
+        it (they were never ingested)."""
+        with self._lock:
+            return len(self._queues.pop(tid, []))
+
+    def put(self, tid, item) -> bool:
+        """Enqueue one ``(W, n_valid)`` batch for ``tid``. False where the
+        batch was shed (full queue under 'drop') or refused (full queue
+        under 'stall', or an unknown tenant)."""
+        with self._lock:
+            q = self._queues.get(tid)
+            if q is None:
+                return False
+            if len(q) >= self.depth:
+                if self.policy == "drop":
+                    self.dropped += 1
+                else:
+                    self.stalls += 1
+                return False
+            q.append(item)
+            return True
+
+    def take(self, tid, k: int = 1) -> list:
+        """Dequeue up to ``k`` batches for ``tid``, oldest first: one
+        front-packed chunk lane."""
+        with self._lock:
+            q = self._queues.get(tid)
+            if not q:
+                return []
+            out, self._queues[tid] = q[:k], q[k:]
+            return out
+
+    def backlog(self, tid=None) -> int:
+        """Pending batches for one tenant, or in all: the serve loop's
+        backpressure signal."""
+        with self._lock:
+            if tid is not None:
+                return len(self._queues.get(tid, ()))
+            return sum(len(q) for q in self._queues.values())
+
+    def tenants(self) -> tuple:
+        with self._lock:
+            return tuple(self._queues)
+
+    def diag(self) -> dict:
+        with self._lock:
+            return {
+                "queue_depth": self.depth,
+                "queue_policy": self.policy,
+                "queue_dropped": self.dropped,
+                "queue_stalls": self.stalls,
+                "queue_backlog": sum(len(q) for q in self._queues.values()),
+            }
 
 
 def stack_batches(buf: list, batch_size: Optional[int] = None) -> tuple[np.ndarray, np.ndarray]:

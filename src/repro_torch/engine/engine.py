@@ -774,6 +774,10 @@ class TriangleCountEngine:
             snap["window_len"] = np.array([n], np.int64)
         return snap
 
+    # the reference's name for the whole-bank snapshot (its elastic tests
+    # compare a tenant's snapshot with it)
+    bank_snapshot = snapshot
+
     def restore(self, snap: dict) -> None:
         """Restore from a snapshot dict of either engine. ``r`` and
         ``n_tenants`` must match; ``batch_size`` may differ (the state does

@@ -43,6 +43,13 @@ batch that was staged but not yet ingested is never skipped. The skip counts
 whole batches, so resuming under another ``batch_size`` is refused.
 Checkpoint directories are interchangeable with the JAX package's.
 
+Elastic serving (``ElasticServeLoop``): one consumer thread owns an
+``ElasticBankEngine`` and drains bounded per-tenant queues
+(``TenantQueues``) into it, one banked dispatch a tick, while queries and
+tenancy operations (hot-add, evict, per-tenant snapshot and restore)
+arrive as futures and are answered between dispatches. ``ServeStats``
+counts what it did.
+
 Signed streams (``run_signed_stream``): the same loop over ``(W, n_valid)``
 and ``(W, n_valid, sign)`` items, batch by batch, with deletions applied
 through ``engine.delete``. Every cursor is ``engine.dyn_step`` (signed
@@ -51,7 +58,10 @@ step. Its resilience is ``run_stream``'s.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import inspect
+import queue as queue_mod
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -59,7 +69,7 @@ from typing import Callable, Iterable, Optional
 
 import numpy as np
 
-from repro_torch.data.prefetch import PrefetchQueue, superbatches
+from repro_torch.data.prefetch import PrefetchQueue, TenantQueues, superbatches
 from repro_torch.engine.engine import SnapshotMismatch, TriangleCountEngine
 from repro_torch.engine.faults import (
     DeadLetterBuffer,
@@ -395,3 +405,296 @@ def run_signed_stream(
         loop.committed = pos
         loop.after(1, int(np.max(np.asarray(item[1]))))
     return loop.finish()
+
+
+# ---------------------------------------------------------------------------
+# elastic serving: concurrent ingest and queries over a slab-allocated bank
+# ---------------------------------------------------------------------------
+@dataclass
+class ServeStats:
+    """Host-side accounting for one ElasticServeLoop run (the reference's
+    fields)."""
+
+    ticks: int = 0  # consumer-loop iterations that did work
+    ingest_dispatches: int = 0  # banked dispatches (one per tick with work)
+    batches: int = 0  # per-tenant batches folded into those dispatches
+    queries_answered: int = 0
+    degraded_queries: int = 0  # answered from the stale cache under backpressure
+    max_staleness: int = 0  # the worst stale answer's age, in bank versions
+    retries: int = 0  # ingest dispatches retried after transient faults
+    control_ops: int = 0  # add/evict/snapshot/restore operations applied
+    evicted_pending: int = 0  # queued batches that died with an evicted tenant
+
+
+class ElasticServeLoop:
+    """The elastic serving tier: one consumer thread drains bounded
+    per-tenant queues into an ``ElasticBankEngine`` while queries and
+    tenancy operations are answered between dispatches. A dispatch returns
+    once its work is queued on the device, so the answers overlap the
+    compute in flight.
+
+    Producers are thread-safe and never wait on the device: ``submit`` puts
+    a batch on that tenant's bounded queue (``TenantQueues``: a full queue
+    sheds or stalls per its policy, counted); ``query``, ``add_tenant``,
+    ``evict_tenant``, ``snapshot_tenant`` and ``restore_tenant`` return
+    ``concurrent.futures.Future``s that the consumer resolves. Each tick
+    the loop (1) applies queued tenancy operations, (2) assembles one
+    front-packed banked batch, up to ``chunk_size`` queued batches per
+    tenant, and dispatches it (transient faults at the ``engine.ingest`` and
+    ``engine.ingest_chunk`` sites ridden out by ``ResilienceConfig.retry``),
+    then (3) answers every waiting query from the version-keyed estimate
+    cache or a fresh query. When the queues' total backlog reaches
+    ``resilience.backpressure_depth`` a query is answered from the newest
+    cached answer, tagged with its staleness, as ``run_stream``'s reports
+    are.
+
+    Snapshots under live traffic are exact: the consumer serialises the
+    slot read against the dispatches, so ``snapshot_tenant`` sees a batch
+    boundary of that tenant's stream while its neighbours keep ingesting.
+    With a ``checkpoint`` manager, snapshots save through its verified
+    (atomic manifest and checksum) store, and ``restore_tenant(tid,
+    step=..)`` restores only what verifies. The consumer thread alone
+    touches ``bank`` and ``stats``; the queues and events are the channels.
+    """
+
+    def __init__(
+        self,
+        bank,
+        *,
+        queues: Optional[TenantQueues] = None,
+        queue_depth: int = 64,
+        queue_policy: str = "drop",
+        resilience: Optional[ResilienceConfig] = None,
+        checkpoint=None,  # CheckpointManager, a directory, or None
+        idle_wait_s: float = 0.005,
+    ):
+        self.bank = bank
+        self.queues = queues if queues is not None else TenantQueues(depth=queue_depth,
+                                                                     policy=queue_policy)
+        self.res = resilience if resilience is not None else ResilienceConfig()
+        if isinstance(checkpoint, str):
+            checkpoint = CheckpointManager(checkpoint, async_save=True)
+        self.ckpt: Optional[CheckpointManager] = checkpoint
+        self.stats = ServeStats()
+        self._idle_wait_s = idle_wait_s
+        self._control: queue_mod.SimpleQueue = queue_mod.SimpleQueue()
+        self._queries: queue_mod.SimpleQueue = queue_mod.SimpleQueue()
+        self._work = threading.Event()
+        self._stop = threading.Event()
+        self._idle = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    # -- producer-facing API (thread-safe) ----------------------------------
+    def submit(self, tid, W, n_valid=None) -> bool:
+        """Enqueue one batch for ``tid``. False: shed or refused (a full
+        queue under its policy, or a tenant that is not resident)."""
+        ok = self.queues.put(tid, (np.asarray(W, np.int32), n_valid))
+        if ok:
+            self._kick()
+        return ok
+
+    def query(self, tid) -> concurrent.futures.Future:
+        """The tenant's estimate, later: a dict ``{tenant, estimate,
+        version, stale_age}``; ``stale_age > 0`` marks a cached answer
+        served under ingest backpressure."""
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        self._queries.put((tid, fut))
+        self._kick()
+        return fut
+
+    def add_tenant(self, tid, seed=None) -> concurrent.futures.Future:
+        return self._control_op(("add", tid, seed))
+
+    def evict_tenant(self, tid) -> concurrent.futures.Future:
+        return self._control_op(("evict", tid, None))
+
+    def snapshot_tenant(self, tid, save: bool = False) -> concurrent.futures.Future:
+        """The tenant's snapshot dict, later; ``save=True`` also writes it
+        through the attached CheckpointManager under the tenant's step."""
+        return self._control_op(("snapshot", tid, save))
+
+    def restore_tenant(self, tid, snap=None, step=None) -> concurrent.futures.Future:
+        """Restore ``tid`` from a snapshot dict, or (``step=``) from the
+        attached CheckpointManager, which loads only a snapshot that
+        verifies."""
+        if snap is None and step is None:
+            raise ValueError("restore_tenant needs snap= or step=")
+        return self._control_op(("restore", tid, (snap, step)))
+
+    def _control_op(self, op) -> concurrent.futures.Future:
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        self._control.put((op, fut))
+        self._kick()
+        return fut
+
+    def _kick(self) -> None:
+        self._idle.clear()
+        self._work.set()
+
+    # -- lifecycle ----------------------------------------------------------
+    def start(self) -> "ElasticServeLoop":
+        if self._thread is not None:
+            raise RuntimeError("serve loop already started")
+        self._thread = threading.Thread(target=self._run, name="elastic-serve", daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self, drain: bool = True) -> ServeStats:
+        """Stop the consumer thread; ``drain=True`` (the default) first
+        finishes every queued batch, query and tenancy operation."""
+        if drain:
+            self.drain()
+        self._stop.set()
+        self._work.set()
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self.ckpt is not None:
+            self.ckpt.wait()
+        return self.stats
+
+    def drain(self, timeout_s: Optional[float] = None) -> bool:
+        """Block until the queues, queries and tenancy operations are all
+        consumed and the bank's work has finished on the device. True on
+        success, False on timeout."""
+        deadline = None if timeout_s is None else time.time() + timeout_s
+        while True:
+            if self._idle.wait(timeout=0.05):
+                self.bank.sync()
+                return True
+            if deadline is not None and time.time() > deadline:
+                return False
+
+    def __enter__(self) -> "ElasticServeLoop":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop(drain=exc == (None, None, None))
+
+    def report(self) -> dict:
+        """Serve stats, the bank's counters and the queues' counters, merged."""
+        out = {k: getattr(self.stats, k) for k in vars(self.stats)}
+        out.update(self.bank.diag.as_dict())
+        out.update(self.queues.diag())
+        return out
+
+    # -- consumer thread ----------------------------------------------------
+    def _run(self) -> None:
+        while True:
+            did = self._apply_control()
+            did = self._dispatch_ingest() or did
+            # answered while the dispatch above still computes on the device
+            did = self._answer_queries() or did
+            if did:
+                self.stats.ticks += 1
+                continue
+            if self.queues.backlog() == 0 and self._control.empty() and self._queries.empty():
+                self._idle.set()
+                if self._stop.is_set():
+                    return
+                self._work.wait(timeout=self._idle_wait_s)
+                self._work.clear()
+
+    def _apply_control(self) -> bool:
+        did = False
+        while True:
+            try:
+                op, fut = self._control.get_nowait()
+            except queue_mod.Empty:
+                return did
+            if not fut.set_running_or_notify_cancel():
+                continue
+            kind, tid, arg = op
+            try:
+                if kind == "add":
+                    slot = self.bank.hot_add(tid, seed=arg)
+                    self.queues.add_tenant(tid)
+                    fut.set_result(slot)
+                elif kind == "evict":
+                    lost = self.queues.remove_tenant(tid)
+                    self.stats.evicted_pending += lost
+                    self.bank.evict(tid)
+                    fut.set_result(lost)
+                elif kind == "snapshot":
+                    snap = self.bank.snapshot_tenant(tid)
+                    if arg and self.ckpt is not None:
+                        meta = {"r": self.bank.r, "batch": self.bank.batch_size,
+                                "tenants": 1, "tenant_id": str(tid)}
+                        self.ckpt.save(int(snap["step"]), snap,
+                                       {"config_hash": config_hash(meta), **meta})
+                    fut.set_result(snap)
+                elif kind == "restore":
+                    snap, step = arg
+                    if snap is None:
+                        if self.ckpt is None:
+                            raise ValueError("restore by step needs a checkpoint manager")
+                        # an async save of this very step may still be in
+                        # flight: land it before reading the store
+                        self.ckpt.wait()
+                        snap, _ = self.ckpt.restore(self.bank.snapshot_template(), step=step)
+                    slot = self.bank.restore_tenant(tid, snap)
+                    self.queues.add_tenant(tid)
+                    fut.set_result(slot)
+                else:  # pragma: no cover - internal
+                    raise ValueError(f"unknown control op {kind!r}")
+                self.stats.control_ops += 1
+            except Exception as e:  # noqa: BLE001 -- delivered to the caller
+                fut.set_exception(e)
+            did = True
+
+    def _dispatch_ingest(self) -> bool:
+        K = self.bank.chunk_size
+        work = {}
+        n_batches = 0
+        for tid in self.bank.tenants():
+            items = self.queues.take(tid, K if K > 1 else 1)
+            if items:
+                work[tid] = items
+                n_batches += len(items)
+        if not work:
+            return False
+
+        def count_retry(attempt, exc):
+            self.stats.retries += 1
+
+        if K > 1:
+            with_retries(self.res.retry, self.bank.ingest_chunk, work, on_retry=count_retry)
+        else:
+            with_retries(self.res.retry, self.bank.ingest,
+                         {tid: items[0] for tid, items in work.items()}, on_retry=count_retry)
+        self.stats.ingest_dispatches += 1
+        self.stats.batches += n_batches
+        return True
+
+    def _answer_queries(self) -> bool:
+        did = False
+        while True:
+            try:
+                tid, fut = self._queries.get_nowait()
+            except queue_mod.Empty:
+                return did
+            if not fut.set_running_or_notify_cancel():
+                continue
+            try:
+                fut.set_result(self._answer_one(tid))
+                self.stats.queries_answered += 1
+            except Exception as e:  # noqa: BLE001 -- delivered to the caller
+                fut.set_exception(e)
+            did = True
+
+    def _answer_one(self, tid) -> dict:
+        bank = self.bank
+        depth = self.res.backpressure_depth
+        if depth and self.queues.backlog() >= depth:
+            cached = bank.cached_estimate()
+            if cached is not None:
+                v, ests = cached
+                age = bank.version - v
+                if age > 0:
+                    self.stats.degraded_queries += 1
+                    self.stats.max_staleness = max(self.stats.max_staleness, age)
+                e = ests[bank.slot_of(tid)]
+                return {"tenant": tid, "estimate": float(e) if np.ndim(e) == 0 else e,
+                        "version": v, "stale_age": age}
+        return {"tenant": tid, "estimate": bank.estimate_tenant(tid), "version": bank.version,
+                "stale_age": 0}

@@ -9,9 +9,10 @@
 
 A wrapper launches its kernel for CUDA tensors (or raises) and runs its plain
 version for CPU tensors; ``LAUNCHES`` counts the wrapper calls that launched
-on the card, ``CUDA_LAUNCHES`` the CUDA kernels those calls queued.
+on the card, ``CUDA_LAUNCHES`` the CUDA kernels those calls queued, ``LIBRARY_EVENTS``
+the kernel libraries built and the entries loaded.
 ``kernels/ref.py`` collects the oracles the tests hold both against.
 """
-from repro_torch.kernels._build import CUDA_LAUNCHES, LAUNCHES, reset_launches
+from repro_torch.kernels._build import CUDA_LAUNCHES, LAUNCHES, LIBRARY_EVENTS, reset_launches
 
-__all__ = ["CUDA_LAUNCHES", "LAUNCHES", "reset_launches"]
+__all__ = ["CUDA_LAUNCHES", "LAUNCHES", "LIBRARY_EVENTS", "reset_launches"]

@@ -44,6 +44,11 @@ LAUNCHES = {name: 0 for name in ("fused_ingest", "bitonic_sort_tiles", "segscan"
 # The CUDA kernels those wrapper calls queued, as each C entry reports them
 # (a tile sort, for one, queues a block sort and one kernel per merge pass).
 CUDA_LAUNCHES = dict(LAUNCHES)
+# Library events: ``builds`` counts the nvcc processes started, ``loads`` the
+# C entries bound (a library is opened at its first entry's bind). Once a
+# caller has used every kernel it needs, neither moves: the elastic tier's
+# steady churn is held to that (``engine/elastic.py``).
+LIBRARY_EVENTS = {"builds": 0, "loads": 0}
 # The C entries' last argument: where they write how many kernels they queued.
 QUEUED = ctypes.POINTER(ctypes.c_int)
 
@@ -94,6 +99,7 @@ def build(names: Iterable[str] = SOURCES) -> dict[str, float]:
         tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
         log = open(target.with_suffix(".log"), "w")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        LIBRARY_EVENTS["builds"] += 1
         procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), tmp, target, log)
     seconds = {name: 0.0 for name in names}
     failed = []
@@ -122,6 +128,7 @@ def load(name: str, fn: str, argtypes: Sequence) -> ctypes._CFuncPtr:
         f.argtypes = list(argtypes)
         f.restype = ctypes.c_int
         _FUNCS[name, fn] = f
+        LIBRARY_EVENTS["loads"] += 1
     return _FUNCS[name, fn]
 
 

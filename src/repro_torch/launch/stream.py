@@ -229,6 +229,23 @@ def print_resilience_summary(engine, rep) -> None:
           f"ckpt_corrupt_skipped={d.ckpt_corrupt_skipped}", flush=True)
 
 
+def build_engine(args) -> TriangleCountEngine:
+    """The engine the flags describe (a bank of ``--tenants`` seeded
+    ``--seed + t``), on the mesh ``--mesh`` lays out; prints the ``mesh:``
+    line where there is one."""
+    mesh = make_stream_mesh(args.mesh, device=args.device, host_devices=args.host_devices)
+    engine = TriangleCountEngine(EngineConfig(
+        r=args.estimators, batch_size=args.batch, groups=args.groups,
+        n_tenants=args.tenants, seeds=tuple(args.seed + t for t in range(args.tenants)),
+        backend=args.backend, tenant_axis=args.tenant_axis,
+        chunk_size=args.chunk, window=args.window, decay=args.decay,
+        device=args.device, **scheme_args(args),
+    ), mesh=mesh)
+    if mesh is not None:
+        print(f"mesh: {dict(mesh.shape)} -> plan {engine.plan.name}", flush=True)
+    return engine
+
+
 def make_dynamic_stream(args, edges):
     """(signed stream, live edge set) for the dynamic flags: the live set,
     after deletions and window or decay expiry, is the estimate's truth."""
@@ -316,16 +333,7 @@ def main(argv=None) -> None:
     else:
         print(f"stream: m={len(edges)} tau={tau}", flush=True)
     install_cli_fault_plan(args)
-    mesh = make_stream_mesh(args.mesh, device=args.device, host_devices=args.host_devices)
-    engine = TriangleCountEngine(EngineConfig(
-        r=args.estimators, batch_size=args.batch, groups=args.groups,
-        n_tenants=args.tenants, seeds=tuple(args.seed + t for t in range(args.tenants)),
-        backend=args.backend, tenant_axis=args.tenant_axis,
-        chunk_size=args.chunk, window=args.window, decay=args.decay,
-        device=args.device, **scheme_args(args),
-    ), mesh=mesh)
-    if mesh is not None:
-        print(f"mesh: {dict(mesh.shape)} -> plan {engine.plan.name}", flush=True)
+    engine = build_engine(args)
     ckpt = {"ckpt_dir": args.ckpt_dir if args.ckpt_every else None,
             "ckpt_every": args.ckpt_every, "resilience": resilience_from_args(args)}
     if args.deletions:
