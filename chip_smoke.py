@@ -46,6 +46,12 @@ Phases, each of which raises on failure (nothing is caught):
              sum/3) and counters (golden/dynamic_small.json): global under
              churn through run_signed_stream, global with a sliding window
              chunked at K = 4, local with exponential decay;
+  golden_serve  the LM serving path (models/transformer.py) for each of the
+             five SMOKE archs in float32 with TF32 off, seed 0's weights
+             drawn on the card: forward and teacher-forced decode_step
+             logits within 1e-4 of the largest |logit| of the JAX
+             reference's (golden/lm_small.json, every 4th vocab column),
+             equal argmax, and the CLI decoding loop's greedy tokens equal;
   full       the paper's bulk_s1m_r2m shape (r = 2^21 estimators, batch
              s = 2^20, chunk K = 4) through TriangleCountEngine + run_stream on
              a 9,088,608-edge planted-triangle stream: two chunks, then a
@@ -83,7 +89,8 @@ Phases, each of which raises on failure (nothing is caught):
              edges/s, peak device bytes and one full-width
              bulk_delete_update: its time back to back (CUDA events), its
              device busy time (torch.profiler) and its host enqueue time;
-             and the host seconds of the window clock (ring appends, flushes);
+             and the host seconds of the window clock: ring appends, flushes,
+             and of the flushes, enqueueing their deletion batches;
   chaos_full  the resilience layer at the full width on phase full's
              stream, global scheme, kernel route, each run under a fault
              plan and held to a state sha256 an earlier phase held to the
@@ -115,7 +122,12 @@ Phases, each of which raises on failure (nothing is caught):
              pools, 2^22 vertices) on the broadcast stream: tenant 0 equals
              phase local_full, every tenant's estimate its own one-tenant
              scatter; (c) dynamic_full's deletion burst, broadcast, through
-             ingest_signed_stream: tenant 0 equals that burst. Every tenant's
+             ingest_signed_stream: tenant 0 equals that burst; (d)
+             dynamic_full's window of 6,291,456 edges over (a)'s four
+             streams, one ring per tenant: equal to the plain route (state
+             and rings), tenant t to a one-tenant windowed engine seeded
+             7 + t, tenant 0 to dynamic_full (a), with the window clock's
+             host seconds. Every tenant's
              rel.err is gated (rel_err_limit; sum/3 for local). It records
              aggregate edges/s, peak device bytes, and a bank chunk's and a
              bank per-batch update's time, device busy time and device
@@ -158,6 +170,17 @@ Phases, each of which raises on failure (nothing is caught):
              peak bytes, a chunk dispatch's time and device busy ms beside
              tenants_full's, the grow's seconds, a snapshot_tenant's ms and
              the allocator segments the churn created;
+  serve_full  the LM serving path at full width, bfloat16, through the
+             serving CLI's entry point (launch.serve.serve): batch 4, prompt
+             8, 16 generated tokens. smollm-135m FULL twice: finite logits,
+             equal tokens, every decode step's logits within 3e-2 of the
+             largest |logit| of forward's over the same sequence (the KV
+             cache at full width), and the decode loop once more under
+             CUDA's sync debug mode, counting host waits; then
+             granite-moe-1b-a400m FULL twice: equal tokens, finite logits.
+             It records tok/s, decode seconds, one step's device busy time,
+             the params' bytes and each decode loop's peak bytes beyond
+             what was already held. No kernel of csrc/ is on this path;
   kernels    each kernel and its plain version at the main path's full-size
              shapes: equal, and timed with CUDA events beside its bound and,
              where one PyTorch call computes the same function, that call;
@@ -1220,6 +1243,30 @@ def rel_err_limit(m: int, tau: int) -> float:
     return 3 * math.sqrt(m * 15 / (FULL["r"] * tau))
 
 
+def time_window_clock(eng) -> dict:
+    """Host seconds inside ``eng``'s window clock, accumulated as it runs:
+    appending each batch to the rings (``track_inserts``), each flush
+    (``flush_expired``), and of that, enqueueing its deletion batches
+    (``apply_delete``); the flush's own ring work is the difference
+    (``flush_ring``, filled in by ``ring_seconds``)."""
+    ring_s = {"track_inserts": 0.0, "flush_expired": 0.0, "apply_delete": 0.0}
+
+    def timed(name, fn):
+        def call(*args):
+            t0 = time.perf_counter()
+            fn(*args)
+            ring_s[name] += time.perf_counter() - t0
+        return call
+
+    for name in ring_s:
+        setattr(eng, f"_{name}", timed(name, getattr(eng, f"_{name}")))
+    return ring_s
+
+
+def ring_seconds(ring_s: dict) -> dict:
+    return {**ring_s, "flush_ring": ring_s["flush_expired"] - ring_s["apply_delete"]}
+
+
 def phase_dynamic_full(dev, full: dict) -> dict:
     import torch
 
@@ -1243,19 +1290,7 @@ def phase_dynamic_full(dev, full: dict) -> dict:
     # (a) a sliding window of 6 s edges: nothing expires after chunk 1,
     # 2 s edges after chunk 2 and the tail's 700,000 after it
     eng = engine("kernel", "kernel", window=window)
-    # host seconds inside the window clock: appending each batch to the ring,
-    # and each flush (its masks and copies, and enqueueing its deletions)
-    ring_s = {"track_inserts": 0.0, "flush_expired": 0.0}
-
-    def timed(name, fn):
-        def call(*args):
-            t0 = time.perf_counter()
-            fn(*args)
-            ring_s[name] += time.perf_counter() - t0
-        return call
-
-    eng._track_inserts = timed("track_inserts", eng._track_inserts)
-    eng._flush_expired = timed("flush_expired", eng._flush_expired)
+    ring_s = time_window_clock(eng)
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
@@ -1354,7 +1389,8 @@ def phase_dynamic_full(dev, full: dict) -> dict:
                      "deletion_batches": n_del, "tau_live": tau_w, "estimate": est,
                      "rel_err": rel_w, "rel_err_limit": limit_w,
                      "edges_per_s": rep.edges_per_s, "seconds": rep.seconds,
-                     "window_clock_host_s": ring_s, "peak_device_bytes": peak, "launches": launches,
+                     "window_clock_host_s": ring_seconds(ring_s), "peak_device_bytes": peak,
+                     "launches": launches,
                      "cuda_launches": cuda_launches, "state_sha256": digest,
                      "window_sha256": ring, "plain_path_equal": True, "restore_equal": True},
           "burst": {"deleted": s, "tau_live": tau_b, "estimate": est_b, "rel_err": rel_b,
@@ -1365,7 +1401,9 @@ def phase_dynamic_full(dev, full: dict) -> dict:
           "bulk_delete_update_ms": delete_ms, "bulk_delete_update_profile": delete_profile,
           "bulk_delete_update_host_enqueue_ms": delete_enqueue_ms, "ok": True})
     return {"launches": launches, "state": state, "D": D, "n_valid": n_tail, "burst_items": items,
-            "burst_digest": digest_b, "burst_tau": tau_b, "burst_s": burst_s}
+            "burst_digest": digest_b, "burst_tau": tau_b, "burst_s": burst_s,
+            "window": window, "window_digest": digest, "window_ring": ring,
+            "window_s": rep.seconds, "window_clock_s": ring_seconds(ring_s)}
 
 
 # the kernels of the chunked path, and of the per-batch path (the ragged
@@ -1641,7 +1679,7 @@ def phase_tenants_full(dev, full: dict, local: dict, dynamic: dict) -> dict:
     from repro_torch.core.state import tenant_state
     from repro_torch.data.graph_stream import batches
     from repro_torch.engine import EngineConfig, TriangleCountEngine, run_stream
-    from repro_torch.interop import state_sha256, tenant_snapshot
+    from repro_torch.interop import state_sha256, tenant_snapshot, window_sha256
     from repro_torch.kernels import LAUNCHES, reset_launches
 
     edges, tau = full["edges"], full["tau"]
@@ -1649,10 +1687,10 @@ def phase_tenants_full(dev, full: dict, local: dict, dynamic: dict) -> dict:
     m = len(edges)
     seeds = tuple(FULL["seed"] + t for t in range(T))
 
-    def engine(n_tenants, tenant_seeds, **kw):
+    def engine(n_tenants, tenant_seeds, ingest="kernel", multisearch="kernel", **kw):
         return TriangleCountEngine(EngineConfig(
             r=r, batch_size=s, chunk_size=K, groups=FULL["groups"], n_tenants=n_tenants,
-            seeds=tenant_seeds, device=dev.type, ingest="kernel", multisearch="kernel", **kw))
+            seeds=tenant_seeds, device=dev.type, ingest=ingest, multisearch=multisearch, **kw))
 
     def run(name, kernels, drive):
         """Drive the bank with every count zeroed just before and read just
@@ -1783,9 +1821,52 @@ def phase_tenants_full(dev, full: dict, local: dict, dynamic: dict) -> dict:
                  "signed_edges_per_s_aggregate": T * (m + s) / burst_s, "rel_err": errs_b,
                  "rel_err_limit": limit_b, "peak_device_bytes": peak_b, "launches": launches_b,
                  "tenant0_equals_phase_dynamic_full": True}
+
+    # (d) dynamic_full's window of 6 s edges over the four relabeled streams:
+    # one ring per tenant, expiry batches of every tenant's next rows
+    window = dynamic["window"]
+    wbank = engine(T, seeds, window=window)
+    ring_s = time_window_clock(wbank)
+    rep_w, launches_w, peak_w = run("window", ("fused_ingest", "bitonic_sort_tiles", "segscan",
+                                               "segmented_max_scan", "multisearch_counts"),
+                                    lambda: run_stream(wbank, bank_batches(streams)))
+    snap_w = wbank.snapshot()
+    digests_w = [state_sha256(tenant_snapshot(snap_w, t)) for t in range(T)]
+    rings_w = [window_sha256(tenant_snapshot(snap_w, t)) for t in range(T)]
+    if (digests_w[0], rings_w[0]) != (dynamic["window_digest"], dynamic["window_ring"]):
+        raise AssertionError("tenants_full window: tenant 0 differs from phase dynamic_full (a)")
+    for t in range(1, T):
+        one = engine(1, (seeds[t],), window=window)
+        run_stream(one, batches(streams[t], s))
+        if (state_sha256(one.snapshot()), window_sha256(one.snapshot())) != (
+                digests_w[t], rings_w[t]):
+            raise AssertionError(f"tenants_full window: tenant {t} differs from a one-tenant "
+                                 f"windowed engine seeded {seeds[t]} on its stream")
+        del one
+    plain = engine(T, seeds, "scan", "eager", window=window)
+    run_stream(plain, bank_batches(streams))
+    if (state_sha256(plain.snapshot()), window_sha256(plain.snapshot())) != (
+            state_sha256(snap_w), window_sha256(snap_w)):
+        raise AssertionError("tenants_full window: kernel route differs from the plain route")
+    del plain
+    tau_w = live_triangles(edges[m - window:], tau)  # the same for every relabeling
+    errs_w, limit_w = rel_errs(wbank.estimate(), tau_w)
+    window_out = {"window": window, "seconds": rep_w.seconds,
+                  "edges_per_s_aggregate": T * m / rep_w.seconds,
+                  "one_tenant_seconds": dynamic["window_s"],
+                  "window_clock_host_s": ring_seconds(ring_s),
+                  "one_tenant_window_clock_host_s": dynamic["window_clock_s"],
+                  "expired": wbank.diag.window_expired, "tau_live": tau_w, "rel_err": errs_w,
+                  "rel_err_limit": limit_w, "peak_device_bytes": peak_w,
+                  "launches": launches_w, "state_sha256": digests_w, "window_sha256": rings_w,
+                  "one_tenant_equal": True, "plain_route_equal": True,
+                  "tenant0_equals_phase_dynamic_full": True}
+    del wbank
     emit({"phase": "tenants_full", "tenants": T, "r": r, "s": s, "K": K, "m": m, "tau": tau,
-          "global": global_out, "local": local_out, "burst": burst_out, "ok": True})
-    launches_all = {k: launches[k] + launches_l[k] + launches_b[k] for k in launches}
+          "global": global_out, "local": local_out, "burst": burst_out, "window": window_out,
+          "ok": True})
+    launches_all = {k: launches[k] + launches_l[k] + launches_b[k] + launches_w[k]
+                    for k in launches}
     return {"launches": launches_all, "state": state, "streams": streams, "keys": keys,
             "chunk_ms": splits["chunk_ms"]["bank"],
             "chunk_busy_ms": splits["chunk_profile"]["bank"]["device_busy_ms"],
@@ -2772,6 +2853,148 @@ def phase_kernels(dev, full: dict, local: dict, dynamic: dict) -> list:
     return rows
 
 
+def phase_golden_serve(dev) -> None:
+    """The LM serving path against the reference's float32 records
+    (golden/lm_small.json, written by JAX), for each SMOKE arch with seed
+    0's weights drawn on the card: forward and teacher-forced decode logits
+    within 1e-4 of the largest |logit| with equal argmax, and the CLI's
+    decoding loop's greedy tokens equal. TF32 is off, so a float32 matmul
+    is a float32 matmul."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import rng
+    from repro_torch.launch.serve import generate, load_config
+    from repro_torch.models import transformer as tt
+
+    gold = json.loads((ROOT / "src/repro_torch/golden/lm_small.json").read_text())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    stride, out = gold["column_stride"], {}
+    for arch, g in gold["archs"].items():
+        cfg = dataclasses.replace(load_config(arch, smoke=True), dtype=torch.float32)
+        params = tt.init_params(rng.PRNGKey(gold["param_seed"], dev), cfg)
+        toks = torch.tensor(g["tokens"], dtype=torch.int32, device=dev)
+        fwd = tt.logits_fn(params, cfg, tt.forward(params, cfg, toks)[0])
+        B, S = toks.shape
+        cache = tt.init_cache(cfg, B, S, dev)
+        steps = []
+        for i in range(S):
+            lg, cache = tt.decode_step(params, cfg, cache, toks[:, i:i + 1])
+            steps.append(lg[:, 0])
+        dec = torch.stack(steps, dim=1)
+        tol = gold["tolerance"] * g["max_abs_logit"]
+        errs = {}
+        for name, got in (("forward", fwd), ("decode", dec)):
+            got = got.cpu().numpy()
+            if not np.isfinite(got).all():
+                raise AssertionError(f"golden_serve {arch}: {name} logits not finite")
+            errs[name] = float(np.abs(got[..., ::stride] - np.array(g[name])).max())
+            if errs[name] > tol:
+                raise AssertionError(f"golden_serve {arch}: {name} max |diff| {errs[name]} "
+                                     f"> {tol}")
+        if fwd.argmax(-1).cpu().tolist() != g["argmax"]:
+            raise AssertionError(f"golden_serve {arch}: forward argmax differs from JAX")
+        prompt = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab, (4, 8)).astype(np.int32)).to(dev)
+        seq, _ = generate(params, cfg, prompt, 16)
+        if seq.cpu().tolist() != g["greedy"]:
+            raise AssertionError(f"golden_serve {arch}: greedy tokens differ from JAX")
+        out[arch] = {"max_abs_err": errs, "tolerance": tol, "greedy_equal": True}
+    emit({"phase": "golden_serve", "archs": out, "tf32": False, "ok": True})
+
+
+# the bfloat16 tolerance of the model tests: a fraction of the largest |logit|
+BF16_LOGIT_TOL = 3e-2
+
+
+def phase_serve_full(dev, card: str) -> dict:
+    """The serving path at full width through ``launch.serve.serve`` (the
+    CLI's entry point), bfloat16, batch 4, prompt 8, 16 generated tokens:
+    (a) smollm-135m FULL, twice (the first call pays cuBLAS's set-up):
+    finite logits, and every decode step's logits within the bfloat16
+    tolerance of ``forward``'s over the same sequence (the KV cache's check
+    at full width); the second call's decode loop runs under CUDA's sync
+    debug mode, counting host waits on the device, and one decode step's
+    device busy time and operations; (b) granite-moe-1b-a400m FULL twice:
+    equal tokens and finite logits. It records tok/s, decode seconds, ms a
+    step, the params' bytes and what each decode loop allocated at its
+    peak."""
+    import warnings
+
+    import torch
+
+    from repro_torch.launch.serve import generate, serve
+    from repro_torch.models import transformer as tt
+
+    def memory(rs, params) -> dict:
+        """tok/s and seconds of each run; the params' bytes, and the bytes
+        each decode loop allocated at its peak beyond what the process held
+        when it started (this script's earlier phases hold device memory
+        too, so their absolute peak is not the serving path's)."""
+        return {"params": sum(p.numel() for p in params.values()),
+                "param_bytes": nbytes(*params.values()),
+                "tok_per_s": [r["tok_per_s"] for r in rs], "seconds": [r["seconds"] for r in rs],
+                "decode_extra_peak_bytes": [r["peak_device_bytes"] - r["held_device_bytes"]
+                                            for r in rs],
+                "held_device_bytes": [r["held_device_bytes"] for r in rs]}
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"card": card}
+    runs = [serve("smollm-135m", False, 4, 8, 16, 0, dev.type, keep_logits=True)
+            for _ in range(2)]
+    a = runs[1]
+    cfg, params, seq = a["cfg"], a["params"], a["seq"]
+    if not torch.equal(runs[0]["seq"], seq):
+        raise AssertionError("serve_full smollm: two runs decode different tokens")
+    steps = torch.stack(a["logits"], dim=1).float()  # (B, P + gen - 1, V)
+    fwd = tt.logits_fn(params, cfg, tt.forward(params, cfg, seq[:, :-1])[0]).float()
+    if not (torch.isfinite(steps).all() and torch.isfinite(fwd).all()):
+        raise AssertionError("serve_full smollm: logits not finite")
+    err = float((steps - fwd).abs().max())
+    scale = float(fwd.abs().max())
+    if err > BF16_LOGIT_TOL * scale:
+        raise AssertionError(f"serve_full smollm: decode vs forward max |diff| {err} > "
+                             f"{BF16_LOGIT_TOL} x {scale}")
+    # the decode loop again, under the sync debug mode: each synchronising
+    # call (a device value read on the host) warns once
+    torch.cuda.synchronize(dev)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            generate(params, cfg, a["prompt"], 16)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    # one decode step (from a fresh cache): the device's busy time and its
+    # operations, beside the loop's wall time per step
+    step = device_busy(lambda: tt.decode_step(params, cfg, tt.init_cache(cfg, 4, 24, dev),
+                                              seq[:, :1]), top=5)
+    out["smollm-135m"] = {
+        **memory(runs, params), "decode_vs_forward_max_abs_err": err, "max_abs_logit": scale,
+        "tolerance": BF16_LOGIT_TOL * scale, "host_syncs_in_decode_loop": syncs,
+        "ms_per_step": [r["seconds"] * 1e3 / 23 for r in runs], "step_profile": step,
+        "sample": seq[0, :16].tolist()}
+    del runs, a, params, steps, fwd
+    torch.cuda.empty_cache()
+    moe = [serve("granite-moe-1b-a400m", False, 4, 8, 16, 0, dev.type, keep_logits=True)
+           for _ in range(2)]
+    if not torch.equal(moe[0]["seq"], moe[1]["seq"]):
+        raise AssertionError("serve_full granite: two runs decode different tokens")
+    if not all(torch.isfinite(lg).all() for r in moe for lg in r["logits"]):
+        raise AssertionError("serve_full granite: logits not finite")
+    out["granite-moe-1b-a400m"] = {**memory(moe, moe[0]["params"]), "runs_equal": True,
+                                   "ms_per_step": [r["seconds"] * 1e3 / 23 for r in moe],
+                                   "sample": moe[0]["seq"][0, :16].tolist()}
+    del moe
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_full", "batch": 4, "prompt": 8, "gen": 16, "dtype": "bfloat16",
+          **out, "ok": True})
+    return out
+
+
 def cli_lines(args) -> list:
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
@@ -2869,6 +3092,7 @@ def main() -> int:
     phase_golden_local(dev)
     phase_naive(dev)
     phase_golden_dynamic(dev)
+    phase_golden_serve(dev)
     full = phase_full(dev)
     local = phase_local_full(dev, full)
     dynamic = phase_dynamic_full(dev, full)
@@ -2876,6 +3100,7 @@ def main() -> int:
     tenants = phase_tenants_full(dev, full, local, dynamic)
     plan_rows = phase_plans_full(dev, card, full, tenants)
     phase_elastic_full(dev, card, full, local, tenants)
+    phase_serve_full(dev, card)
     rows = phase_kernels(dev, full, local, dynamic)
     rows += bank_kernel_rows(dev, tenants) + plan_rows
     phase_cli()

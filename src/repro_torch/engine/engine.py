@@ -35,12 +35,14 @@ the scheme's name, so restoring into an engine of another scheme raises
 Dynamic streams: ``delete(D)`` patches a batch of edge deletions out of the
 estimators (``scheme.delete_update``: no randomness, ``step`` unchanged) and
 ``ingest_signed_stream`` drains a signed batch iterator. ``window=N`` keeps
-only the newest N inserted edges live and ``decay=D`` gives each inserted
-edge a deterministic geometric lifetime of mean D insertions; both keep a
-host-side ring of live (edge, expiry) rows in insertion order and author
-expiry deletion batches from it after every ingest (once per chunk on the
-chunked path, as the reference does). Snapshots of such engines carry the
-ring at fixed capacity (``window_edges``, ``window_expiry``,
+only the newest N inserted edges of each tenant live and ``decay=D`` gives
+each inserted edge a deterministic geometric lifetime of mean D insertions
+(hashed from its tenant's seed); both keep one host ring per tenant of live
+(edge, expiry) rows in insertion order (``_Rings``) and author expiry
+deletion batches from them after every ingest (once per chunk on the
+chunked path, as the reference does): each round takes every tenant's next
+<= s expired rows into one (T, s, 2) batch. Snapshots of such engines carry
+the rings at fixed capacity (``window_edges``, ``window_expiry``,
 ``window_len``), in the reference's format.
 
 Plans (``engine.backends``): ``TriangleCountEngine(config, mesh)`` runs
@@ -74,9 +76,7 @@ packages. ``single`` has no device-resident query, so ``engine.estimate``
 never fires there and ``estimate(timeout_s=)`` has nothing to bound, as in
 the reference.
 
-Window and decay over a bank of more than one tenant are not ported;
-asking for them raises ``NotImplementedError`` naming the ROADMAP item that
-brings them. The engine runs on the card unless ``device="cpu"``.
+The engine runs on the card unless ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -148,10 +148,6 @@ class EngineConfig:
                 f"got window={self.window}, decay={self.decay}")
         if self.n_tenants < 1:
             raise ValueError(f"n_tenants must be >= 1, got {self.n_tenants}")
-        if self.n_tenants > 1 and (self.window or self.decay):
-            raise NotImplementedError(
-                "window/decay over a bank of more than one tenant comes with ROADMAP "
-                "A.19, 'The window clock's host ring' (one ring per tenant)")
         self.resolved_scheme()
         if self.seeds is not None and len(self.seeds) != self.n_tenants:
             raise ValueError(f"seeds has {len(self.seeds)} entries for {self.n_tenants} tenants")
@@ -218,6 +214,70 @@ def _edge_keys(E: np.ndarray) -> np.ndarray:
     return (np.minimum(E[:, 0], E[:, 1]) << 32) | (np.maximum(E[:, 0], E[:, 1]) & 0xFFFFFFFF)
 
 
+class _Rings:
+    """One ring per tenant of live (edge, expiry) rows in insertion order,
+    each preallocated at ``cap`` rows: an append writes at the tail in
+    place, a cut of the oldest rows moves the head, and a masked removal
+    compacts the survivors once. Rows ``lo ..`` of a ring are counted from
+    its head."""
+
+    def __init__(self, n_tenants: int, cap: int):
+        self.cap = cap
+        self.edges = np.empty((n_tenants, cap, 2), np.int32)
+        self.expiry = np.empty((n_tenants, cap), np.int64)
+        self.head = np.zeros((n_tenants,), np.int64)
+        self.len = np.zeros((n_tenants,), np.int64)
+
+    def _spans(self, t: int, lo: int, n: int) -> list:
+        """Ring rows lo .. lo + n - 1 as at most two buffer slices."""
+        a = int(self.head[t] + lo) % self.cap
+        first = min(n, self.cap - a)
+        return [slice(a, a + first)] + ([slice(0, n - first)] if n > first else [])
+
+    def rows(self, t: int, lo: int = 0, n: Optional[int] = None) -> tuple:
+        """(edges (n, 2), expiry (n,)) of ring rows lo .., in order: views
+        where they lie in one piece, else copies."""
+        n = int(self.len[t]) - lo if n is None else n
+        spans = self._spans(t, lo, n)
+        if len(spans) == 1:
+            return self.edges[t, spans[0]], self.expiry[t, spans[0]]
+        return (np.concatenate([self.edges[t, sp] for sp in spans]),
+                np.concatenate([self.expiry[t, sp] for sp in spans]))
+
+    def append(self, t: int, E: np.ndarray, X: np.ndarray) -> None:
+        n = len(E)
+        if self.len[t] + n > self.cap:
+            raise RuntimeError(f"tenant {t}'s window ring overflows its {self.cap} rows")
+        at = 0
+        for sp in self._spans(t, int(self.len[t]), n):
+            k = sp.stop - sp.start
+            self.edges[t, sp] = E[at:at + k]
+            self.expiry[t, sp] = X[at:at + k]
+            at += k
+        self.len[t] += n
+
+    def count_below(self, t: int, clock: int) -> int:
+        """The rows with expiry < clock, for a ring whose expiry rises in
+        ring order (window mode): a prefix, found by bisection."""
+        n = 0
+        for sp in self._spans(t, 0, int(self.len[t])):
+            x = self.expiry[t, sp]
+            k = int(np.searchsorted(x, clock, side="left"))
+            n += k
+            if k < len(x):
+                break
+        return n
+
+    def drop_oldest(self, t: int, n: int) -> None:
+        self.head[t] = (self.head[t] + n) % self.cap
+        self.len[t] -= n
+
+    def load(self, t: int, E: np.ndarray, X: np.ndarray) -> None:
+        """Replace tenant t's ring by rows E, X (from the buffer start)."""
+        self.head[t], self.len[t] = 0, 0
+        self.append(t, E, X)
+
+
 class TriangleCountEngine:
     """Streaming triangle counter for a bank of tenants (see module
     docstring)."""
@@ -243,15 +303,17 @@ class TriangleCountEngine:
         self._dyn_step = 0  # signed batches applied (inserts and deletions)
         self.diag = EngineDiagnostics(backend=self.plan.name)
         self._pending_overflow: list = []  # shardmap's device scalars, drained lazily
-        # the window/decay clock, which runs one tenant: insertions so far
-        # (equal to m_seen, kept on the host so no expiry check waits on the
-        # device), and the ring of live rows in insertion order: edges
-        # (n, 2) int32 as inserted, and each one's expiry position (dead
-        # once below the clock)
+        # the window/decay clock: each tenant's insertions so far (equal to
+        # its m_seen, kept on the host so no expiry check waits on the
+        # device), and in window/decay mode each tenant's ring of live rows:
+        # edges as inserted and each one's expiry position (dead once below
+        # its tenant's clock). A ring holds at most the window (or TTL cap)
+        # after a flush, plus what one ingest adds before the next
         self._dynamic = bool(config.window or config.decay)
-        self._inserted = 0
-        self._win_edges = np.zeros((0, 2), np.int32)
-        self._win_expiry = np.zeros((0,), np.int64)
+        self._inserted = np.zeros((config.n_tenants,), np.int64)
+        self._rings = (_Rings(config.n_tenants, self._window_capacity()
+                              + config.chunk_size * config.batch_size)
+                       if self._dynamic else None)
         self._root_key = torch.stack(
             [rng.PRNGKey(seed, self.device) for seed in config.tenant_seeds()])
         self._state = self._place(self.scheme.init_state(
@@ -416,7 +478,7 @@ class TriangleCountEngine:
         self._dyn_step += 1
         self.diag.batches_ingested += 1
         self.diag.edges_ingested += int(nv.max())
-        self._track_inserts(Wb[0], nv[0])
+        self._track_inserts(Wb, nv)
         self._flush_expired()
 
     def _drain_overflow(self) -> None:
@@ -501,7 +563,7 @@ class TriangleCountEngine:
         self.diag.batches_ingested += K
         self.diag.edges_ingested += c.edges
         for k in range(K):
-            self._track_inserts(None if c.W_host is None else c.W_host[0, k], c.nv_host[0, k])
+            self._track_inserts(None if c.W_host is None else c.W_host[:, k], c.nv_host[:, k])
         self._flush_expired()
 
     def ingest_stream(self, batch_iter: Iterable[tuple[np.ndarray, int]]) -> int:
@@ -564,7 +626,7 @@ class TriangleCountEngine:
         Db, nv = self._bank_batch(D, n_valid)
         self._apply_delete(Db, nv)
         if self._dynamic:
-            self._forget_window(Db[0], int(nv[0]))
+            self._forget_window(Db, nv)
         self._dyn_step += 1
         self.diag.delete_batches += 1
         self.diag.edges_deleted += int(nv.max())
@@ -611,54 +673,79 @@ class TriangleCountEngine:
 
         return decay_cap(self.config.decay)
 
-    def _track_inserts(self, W: Optional[np.ndarray], n_valid) -> None:
-        """Advance the insertion clock past one applied batch; in window or
-        decay mode also append its rows to the ring with their expiry
-        positions (insert position + window, or + the edge's TTL)."""
-        n = int(n_valid)
-        start = self._inserted
-        self._inserted = start + n
-        if not self._dynamic or n == 0:
+    def _track_inserts(self, W: Optional[np.ndarray], nv) -> None:
+        """Advance each tenant's insertion clock past one applied batch (W
+        (T, s, 2), nv (T,)); in window or decay mode also append tenant t's
+        rows to its ring with their expiry positions (insert position +
+        window, or + the edge's TTL drawn from tenant t's seed)."""
+        nv = np.broadcast_to(np.asarray(nv, np.int64).reshape(-1), (self.n_tenants,))
+        if not self._dynamic:
+            self._inserted += nv
             return
-        pos = start + np.arange(n, dtype=np.int64)
-        if self.config.window:
-            exp = pos + self.config.window
-        else:
-            from repro_torch.data.graph_stream import decay_ttls
+        from repro_torch.data.graph_stream import decay_ttls
 
-            exp = pos + decay_ttls(self.config.tenant_seeds()[0], start, n, self.config.decay)
-        self._win_edges = np.concatenate([self._win_edges, np.asarray(W[:n], np.int32)])
-        self._win_expiry = np.concatenate([self._win_expiry, exp])
+        seeds = self.config.tenant_seeds()
+        for t in range(self.n_tenants):
+            n, start = int(nv[t]), int(self._inserted[t])
+            if n == 0:
+                continue
+            pos = start + np.arange(n, dtype=np.int64)
+            if self.config.window:
+                exp = pos + self.config.window
+            else:
+                exp = pos + decay_ttls(seeds[t], start, n, self.config.decay)
+            self._rings.append(t, W[t, :n], exp)
+            self._inserted[t] = start + n
 
     def _flush_expired(self) -> None:
-        """Delete every ring row the clock has passed (expiry < insertions
-        so far), in ring order, in batches of at most s. No-op when nothing
-        expired."""
+        """Delete every ring row its tenant's clock has passed (expiry <
+        insertions so far), as the reference does: in rounds, each taking
+        every tenant's next <= s expired rows in ring order into one
+        (T, s, 2) batch, until none is left. In window mode expiry rises
+        along a ring, so the dead rows are its oldest and the head moves
+        past them; in decay mode a mask picks them and the ring compacts
+        once. No-op when nothing expired."""
         if not self._dynamic:
             return
-        dead = self._win_expiry < self._inserted
-        total = int(dead.sum())
+        rings, expired = self._rings, []
+        for t in range(self.n_tenants):
+            clock = int(self._inserted[t])
+            if self.config.window:
+                d = rings.count_below(t, clock)
+                expired.append(rings.rows(t, 0, d)[0])
+                rings.drop_oldest(t, d)
+            else:
+                E, X = rings.rows(t)
+                dead = X < clock
+                expired.append(E[dead])
+                if len(expired[-1]):
+                    rings.load(t, E[~dead], X[~dead])
+        total = sum(len(e) for e in expired)
         if total == 0:
             return
-        expired = self._win_edges[dead]
-        self._win_edges = self._win_edges[~dead]
-        self._win_expiry = self._win_expiry[~dead]
         self.diag.window_expired += total
-        s = self.config.batch_size
-        for lo in range(0, total, s):
-            take = expired[lo:lo + s]
-            Db = np.zeros((1, s, 2), np.int32)
-            Db[0, : len(take)] = take
-            self._apply_delete(Db, np.array([len(take)], np.int64))
+        s, T = self.config.batch_size, self.n_tenants
+        for lo in range(0, max(len(e) for e in expired), s):
+            Db = np.zeros((T, s, 2), np.int32)
+            nv = np.zeros((T,), np.int64)
+            for t, e in enumerate(expired):
+                take = e[lo:lo + s]
+                Db[t, : len(take)] = take
+                nv[t] = len(take)
+            self._apply_delete(Db, nv)
 
-    def _forget_window(self, Dp: np.ndarray, n_valid: int) -> None:
-        """Drop explicitly deleted edges from the ring, so the clock never
-        authors a second deletion for them."""
-        if n_valid == 0 or len(self._win_edges) == 0:
-            return
-        keep = ~np.isin(_edge_keys(self._win_edges), _edge_keys(Dp[:n_valid]))
-        self._win_edges = self._win_edges[keep]
-        self._win_expiry = self._win_expiry[keep]
+    def _forget_window(self, Db: np.ndarray, nv: np.ndarray) -> None:
+        """Drop explicitly deleted edges (Db (T, s, 2), nv (T,)) from their
+        tenants' rings, matching on the canonical (min, max) pair, so the
+        clock never authors a second deletion for them."""
+        for t in range(self.n_tenants):
+            n = int(nv[t])
+            if n == 0 or self._rings.len[t] == 0:
+                continue
+            E, X = self._rings.rows(t)
+            keep = ~np.isin(_edge_keys(E), _edge_keys(Db[t, :n]))
+            if not keep.all():
+                self._rings.load(t, E[keep], X[keep])
 
     # -- queries -------------------------------------------------------------
     def estimate(self, *, gather: bool = False, timeout_s: Optional[float] = None) -> np.ndarray:
@@ -765,13 +852,15 @@ class TriangleCountEngine:
             [self.config.r, self.config.batch_size, self.config.n_tenants], np.int64)
         snap["scheme"] = np.array(self.scheme.name)
         if self._dynamic:
-            # the ring at fixed capacity, so checkpoint templates have one shape
-            C, n = self._window_capacity(), len(self._win_edges)
-            snap["window_edges"] = np.zeros((1, C, 2), np.int32)
-            snap["window_edges"][0, :n] = self._win_edges
-            snap["window_expiry"] = np.full((1, C), -1, np.int64)
-            snap["window_expiry"][0, :n] = self._win_expiry
-            snap["window_len"] = np.array([n], np.int64)
+            # the rings at fixed capacity, so checkpoint templates have one shape
+            T, C = self.n_tenants, self._window_capacity()
+            snap["window_edges"] = np.zeros((T, C, 2), np.int32)
+            snap["window_expiry"] = np.full((T, C), -1, np.int64)
+            snap["window_len"] = self._rings.len.copy()
+            for t in range(T):
+                E, X = self._rings.rows(t)
+                snap["window_edges"][t, : len(E)] = E
+                snap["window_expiry"][t, : len(X)] = X
         return snap
 
     # the reference's name for the whole-bank snapshot (its elastic tests
@@ -795,7 +884,6 @@ class TriangleCountEngine:
                 f"snapshot was written by scheme {scheme!r}; this engine runs "
                 f"{self.scheme.name!r} (pass scheme={scheme!r} or use "
                 "from_snapshot, which adopts the snapshot's scheme)")
-        win_edges, win_expiry = np.zeros((0, 2), np.int32), np.zeros((0,), np.int64)
         if self._dynamic:
             if "window_edges" not in snap:
                 raise SnapshotMismatch(
@@ -808,9 +896,8 @@ class TriangleCountEngine:
                 raise SnapshotMismatch(
                     f"snapshot window state {we.shape} != engine capacity {shape}: the "
                     "snapshot was taken under a different window/decay configuration")
-            n = int(np.asarray(snap["window_len"]).reshape(-1)[0])
-            win_edges = we[0, :n].astype(np.int32)
-            win_expiry = np.asarray(snap["window_expiry"])[0, :n].astype(np.int64)
+            wx = np.asarray(snap["window_expiry"])
+            wl = np.asarray(snap["window_len"]).reshape(-1)
         T, r = self.n_tenants, self.config.r
         shapes = {"f1": (T, r, 2), "chi": (T, r), "f2": (T, r, 2), "has_f3": (T, r),
                   "m_seen": (T,), "root_keys": (T, 2)}
@@ -838,8 +925,11 @@ class TriangleCountEngine:
         self._dyn_step = int(snap.get("dyn_step", snap["step"]))
         self._est_cache = {}
         # deletions never touch m_seen, so the clock restores from the state
-        self._inserted = int(np.asarray(snap["m_seen"]).reshape(-1)[0])
-        self._win_edges, self._win_expiry = win_edges, win_expiry
+        self._inserted = np.asarray(snap["m_seen"], np.int64).reshape(T).copy()
+        if self._dynamic:
+            for t in range(T):
+                n = int(wl[t])
+                self._rings.load(t, we[t, :n], wx[t, :n])
 
     @classmethod
     def from_snapshot(cls, snap: dict, *, batch_size: Optional[int] = None, mesh: Any = None,

@@ -10,6 +10,10 @@ function of (root key, step), a snapshot taken mid-stream by either engine
 continues bit-identically in the other. These functions check a snapshot
 against that format and normalise its dtypes, and hash states and estimates
 for comparison; they need neither framework's arrays, only numpy.
+
+``from_jax_params`` carries a transformer's param dict the other way: the
+reference's params as numpy arrays (``jax.device_get``) into the port's
+tensors, so both packages can run one model on the same weights.
 """
 from __future__ import annotations
 
@@ -94,3 +98,26 @@ def window_sha256(snap: dict) -> str:
     for k, dt in (("window_edges", "<i4"), ("window_expiry", "<i8"), ("window_len", "<i8")):
         h.update(np.ascontiguousarray(s[k].astype(dt)).tobytes())
     return h.hexdigest()
+
+
+def from_jax_params(params_np: dict, cfg, device="cpu") -> dict:
+    """The reference's transformer params (a dict of numpy arrays) as the
+    port's tensors on ``device``. The port keeps the reference's keys and
+    layouts (``models.transformer``), so each array keeps its shape; a
+    bfloat16 array (numpy's ``ml_dtypes.bfloat16``, which torch cannot
+    take) crosses as its uint16 bits. Every leaf but the float32 router
+    must be in ``cfg.dtype``."""
+    import torch
+
+    out = {}
+    for k, a in params_np.items():
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(np.array(a).view(np.uint16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(a))
+        want = torch.float32 if k == "router" else cfg.dtype
+        if t.dtype != want:
+            raise ValueError(f"param {k!r} is {t.dtype}, the config needs {want}")
+        out[k] = t.to(device)
+    return out

@@ -20,6 +20,19 @@ def fused_ingest_ref(state, Ws, n_valids, key, step0=0):
     return _bulk_update_chunk_scan(state, Ws, n_valids, key, step0, "eager")
 
 
-__all__ = ["bitonic_sort_tiles_ref", "fused_ingest_ref",
+def moe_dispatch_ref(expert_idx, capacity: int, n_experts: int):
+    """(slot, keep): the slot of each token within its expert's capacity
+    buckets, the MoE layer's routing contract. ``slot`` is the token's rank
+    among same-expert tokens in arrival order; a token with slot >= capacity
+    is dropped (keep False)."""
+    import torch
+
+    one_hot = torch.nn.functional.one_hot(expert_idx.long(), n_experts).to(torch.int32)
+    pos_in_expert = torch.cumsum(one_hot, dim=0) - 1  # (t, E)
+    slot = pos_in_expert.gather(1, expert_idx.long()[:, None])[:, 0]
+    return slot.to(torch.int32), slot < capacity
+
+
+__all__ = ["bitonic_sort_tiles_ref", "fused_ingest_ref", "moe_dispatch_ref",
            "multisearch_counts_ref", "segment_sum_ref", "segmented_max_scan_ref",
            "segscan_ref"]

@@ -318,9 +318,6 @@ def main(argv=None) -> None:
                     help="exit nonzero unless the estimate lands within this "
                          "relative error of the true count")
     args = ap.parse_args(argv)
-    if args.tenants > 1 and (args.window or args.decay):
-        sys.exit("--window/--decay over --tenants > 1 is not ported yet "
-                 "(ROADMAP A.19: one ring per tenant)")
 
     edges, tau = make_stream(args)
     dynamic = bool(args.deletions or args.window or args.decay)

@@ -319,9 +319,6 @@ def main(argv=None) -> None:
     if args.elastic:
         run_elastic(args)
         return
-    if args.tenants > 1 and (args.window or args.decay):
-        sys.exit("--window/--decay over --tenants > 1 is not ported yet "
-                 "(ROADMAP A.19: one ring per tenant)")
 
     edges, tau = make_stream(args)
     signed = None

@@ -18,7 +18,7 @@ remainder that ``randint`` needs is emulated by ``_urem64``.
 """
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -106,11 +106,24 @@ def bits64(key: Tensor, shape: tuple[int, ...], offset: int = 0) -> Tensor:
     return (y0 << 32) | y1
 
 
-def uniform(key: Tensor, shape: tuple[int, ...], offset: int = 0) -> Tensor:
+def uniform(key: Tensor, shape: tuple[int, ...], offset: int = 0,
+            minval: Optional[float] = None, maxval: Optional[float] = None) -> Tensor:
     """``jax.random.uniform(key, shape, float32)`` on [0, 1): the top 23 bits
-    as the mantissa of a float in [1, 2), minus 1."""
+    as the mantissa of a float in [1, 2), minus 1. With ``minval`` and
+    ``maxval`` (numbers, rounded to float32 as jax converts them), jax's
+    ``max(minval, u * (maxval - minval) + minval)``, whose multiply and add
+    XLA fuses into one rounding (an FMA): it is computed in float64 and
+    rounded once to float32, which is that FMA wherever the float64 sum is
+    exact, as it is for the initialisers' range ``-maxval .. maxval`` (u
+    has 23 bits after the point, the span 24 significant bits)."""
     b = (bits32(key, shape, offset) >> 9) | 0x3F800000
-    return b.to(torch.int32).view(torch.float32) - 1.0
+    u = b.to(torch.int32).view(torch.float32) - 1.0
+    if minval is None:
+        return u
+    lo = torch.tensor(minval, dtype=torch.float32, device=u.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=u.device)
+    span = (hi - lo).double()
+    return torch.maximum(lo, (u.double() * span + lo.double()).float())
 
 
 def uniform64(key: Tensor, shape: tuple[int, ...], offset: int = 0) -> Tensor:

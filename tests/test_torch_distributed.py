@@ -59,6 +59,7 @@ from repro_torch.interop import (  # noqa: E402
     from_jax_snapshot,
     state_sha256,
     to_jax_snapshot,
+    window_sha256,
 )
 from repro_torch.kernels.fused_ingest import fused_ingest, fused_ingest_plain  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
@@ -108,6 +109,10 @@ def _scheme_kw(scheme):
 
 
 SERVICE_CASES = (("pjit_coordinated", "2x4"), ("shardmap", "estimators=4"))
+# window and decay on the sharded plans: (plan, mesh, T, K, mode)
+WINDOW_CASES = (("banked_pjit_coordinated", "tenants=2,estimators=2", 2, 2, {"window": 40}),
+                ("banked_pjit_independent", "tenants=4", 4, 1, {"decay": 15.0}),
+                ("pjit_independent", "2x4", 1, 1, {"window": 40}))
 SERVICE_FAULTS = "engine.estimate:raise@1x2"
 
 
@@ -197,6 +202,12 @@ def _jax_side(out_path: str) -> None:
                             backend=plan), mesh=mesh(name))
         e.ingest_signed_stream(signed_batches(stream, S))
         res[f"delete/{plan}"] = eng_out(e)
+    for plan, name, T, K, mode in WINDOW_CASES:
+        e = JEngine(JConfig(r=R, batch_size=S, n_tenants=T, seeds=tuple(range(T)),
+                            chunk_size=K, backend=plan, **mode), mesh=mesh(name))
+        e.ingest_stream(batches(_planted(), S))
+        res[f"window/{plan}"] = eng_out(e, {"ring": window_sha256(from_jax_snapshot(
+            e.snapshot())), "expired": e.diag.window_expired})
 
     # snapshots: a reference mesh engine's mid-stream snapshot for the port,
     # and a port mesh engine's snapshot restored into reference meshes
@@ -421,6 +432,18 @@ def test_deletions_on_sharded_plans_match_reference(ref, plan, name, T):
     got = _out(e)
     assert got["diag"]["delete_batches"] > 0
     assert got == ref[f"delete/{plan}"]
+
+
+@pytest.mark.parametrize("plan,name,T,K,mode", WINDOW_CASES)
+def test_window_and_decay_on_sharded_plans_match_reference(ref, plan, name, T, K, mode):
+    """The reference runs a windowed (or decayed) bank on its banked plans,
+    and a windowed tenant on pjit: so does the port, to the same state and
+    rings."""
+    e = _engine(plan, name, T=T, chunk_size=K, **mode)
+    e.ingest_stream(batches(_planted(), S))
+    got = _out(e, {"ring": window_sha256(e.snapshot()), "expired": e.diag.window_expired})
+    assert got["expired"] > 0
+    assert got == ref[f"window/{plan}"]
 
 
 @pytest.mark.parametrize("spec,plan", [("", "single"), ("tenants=4", "banked_pjit_independent"),

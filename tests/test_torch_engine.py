@@ -19,7 +19,7 @@ from repro.engine import TriangleCountEngine as JaxEngine
 from repro_torch.data import graph_stream as tgs
 from repro_torch.data import prefetch as tpf
 from repro_torch.engine import EngineConfig, TriangleCountEngine, run_stream
-from repro_torch.interop import from_jax_snapshot, state_sha256, to_jax_snapshot
+from repro_torch.interop import from_jax_snapshot, state_sha256, to_jax_snapshot, window_sha256
 from repro_torch.launch import stream as cli
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -128,11 +128,19 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 def test_unported_features_name_their_roadmap_item():
-    # banks are ported; a window (or decay) over more than one tenant is not
-    with pytest.raises(NotImplementedError, match="A.19"):
-        EngineConfig(r=64, batch_size=8, device="cpu", n_tenants=2, window=10)
-    with pytest.raises(NotImplementedError, match="A.19"):
-        EngineConfig(r=64, batch_size=8, device="cpu", n_tenants=2, decay=10.0)
+    # a window (or decay) over more than one tenant, once refused, runs as
+    # the reference's does: equal state and rings on a small stream
+    W = np.stack([jgs.erdos_renyi_stream(20, 8, seed=t) for t in range(2)]).astype(np.int32)
+    for mode in ({"window": 10}, {"decay": 10.0}):
+        cfg = dict(r=64, batch_size=8, n_tenants=2, seeds=(1, 2), **mode)
+        port = TriangleCountEngine(EngineConfig(device="cpu", **cfg))
+        ref = JaxEngine(JaxConfig(**cfg))
+        for _ in range(3):
+            port.ingest(W)
+            ref.ingest(W)
+        assert port.diag.window_expired == ref.diag.window_expired > 0, mode
+        assert state_sha256(port.snapshot()) == state_sha256(ref.snapshot()), mode
+        assert window_sha256(port.snapshot()) == window_sha256(ref.snapshot()), mode
     # schemes are ported: an unknown name raises the reference's ValueError
     with pytest.raises(ValueError, match=r"unknown scheme 'nope'; registered: "
                                          r"\['global', 'local', 'naive'\]"):

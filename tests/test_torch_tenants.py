@@ -6,7 +6,8 @@ with the same ``n_tenants`` and seeds on the CPU at a small size (r = 512, s =
 and broadcast streams, per-batch and chunked ingest with every form of the
 chunk's counts, the three schemes, turnstile deletions, the per-tenant
 queries and counters, snapshots and checkpoint directories carried across
-packages, and the CLI's ``--tenants`` lines. The plain version of each
+packages, window and decay over a bank (one ring per tenant), and the
+CLI's ``--tenants`` lines. The plain version of each
 kernel's bank form is held to T calls of its one-tenant form; on a CUDA
 machine the kernels' bank forms are held to T one-tenant launches, bit for
 bit, with the same launches per call.
@@ -26,6 +27,7 @@ from repro.engine import EngineConfig as JaxConfig
 from repro.engine import TriangleCountEngine as JaxEngine
 from repro.engine import run_stream as jax_run_stream
 from repro.launch import stream as jax_cli
+from repro.launch import stream_serve as jax_serve_cli
 from repro_torch import rng
 from repro_torch.core import bulk, schemes
 from repro_torch.core.rank import rank_all_chunk
@@ -38,6 +40,7 @@ from repro_torch.interop import (
     state_sha256,
     tenant_snapshot,
     to_jax_snapshot,
+    window_sha256,
 )
 from repro_torch.kernels import CUDA_LAUNCHES
 from repro_torch.kernels.bitonic import bitonic_sort_tiles, bitonic_sort_tiles_plain
@@ -46,6 +49,7 @@ from repro_torch.kernels.multisearch import multisearch_counts, multisearch_coun
 from repro_torch.kernels.segment_sum import segment_sum, segment_sum_plain
 from repro_torch.kernels.segscan import segmented_max_scan, segscan, segscan_plain
 from repro_torch.launch import stream as cli
+from repro_torch.launch import stream_serve as serve_cli
 
 R, S = 512, 32
 LOCAL = {"n_vertices": 700, "n_pools": 4}
@@ -79,10 +83,10 @@ def _items(kind, T):
     return list(_bank_batches([_stream(10 + t, cut=7 * t) for t in range(T)]))
 
 
-def _cfg(T, scheme="global", K=1, seeds=None):
+def _cfg(T, scheme="global", K=1, seeds=None, **dynamic):
     return dict(r=R, batch_size=S, n_tenants=T, chunk_size=K, scheme=scheme,
                 seeds=seeds or tuple(3 + t for t in range(T)),
-                scheme_params=LOCAL if scheme == "local" else None)
+                scheme_params=LOCAL if scheme == "local" else None, **dynamic)
 
 
 def _port(T, scheme="global", K=1, **kw):
@@ -257,6 +261,92 @@ def test_checkpoint_dir_cross_restores(writer, tmp_path):
     assert state_sha256(resumed.snapshot()) == state_sha256(straight.snapshot())
 
 
+# ---------------------------------------------------------------------------
+# window and decay over a bank: one ring per tenant
+# ---------------------------------------------------------------------------
+def _assert_same_windowed(port, ref, msg=""):
+    """_assert_same, plus the rings (window_sha256) and the expiry count."""
+    _assert_same(port, ref, msg)
+    assert window_sha256(port.snapshot()) == window_sha256(ref.snapshot()), msg
+    assert port.diag.window_expired == ref.diag.window_expired > 0, msg
+
+
+@pytest.mark.parametrize("mode,T,K,kind", [
+    ({"window": 48}, 2, 1, "per_tenant"), ({"window": 48}, 3, 4, "per_tenant"),
+    ({"window": 100}, 3, 1, "broadcast"), ({"decay": 20.0}, 2, 4, "broadcast"),
+    ({"decay": 20.0}, 3, 1, "per_tenant"), ({"decay": 30.0}, 2, 1, "per_tenant"),
+])
+def test_windowed_bank_matches_jax(mode, T, K, kind):
+    """Window and decay over a bank: per-tenant rings, expiry batches that
+    take every tenant's next <= s expired rows a round, decay TTLs from each
+    tenant's own seed; state, rings and counters equal to the JAX engine's
+    after every batch (per-batch) or at the end (chunked)."""
+    items = _items(kind, T)
+    port, ref = _port(T, K=K, **mode), _jax(T, K=K, **mode)
+    if K == 1:
+        for i, (W, nv) in enumerate(items):
+            port.ingest(W, nv)
+            ref.ingest(W, nv)
+            assert window_sha256(port.snapshot()) == window_sha256(ref.snapshot()), i
+    else:
+        assert port.ingest_stream(iter(items)) == ref.ingest_stream(iter(items))
+    _assert_same_windowed(port, ref, f"{mode} T={T} K={K} {kind}")
+    lens = port.snapshot()["window_len"]
+    if "window" in mode:
+        assert (lens == mode["window"]).all()
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_windowed_bank_midwindow_snapshot_restores_into_either_package(writer):
+    """The reference's mid-window round trip (window 48, two tenants,
+    ``tests/test_dynamic.py``), the snapshot restored into the other package
+    too: every run ends in the uninterrupted run's state and rings."""
+    T, items = 2, list(tgs.batches(tgs.erdos_renyi_stream(30, 200, seed=31), S))
+    half = len(items) // 2
+    mk = {"port": lambda: _port(T, window=48), "jax": lambda: _jax(T, window=48)}
+    src = mk[writer]()
+    for W, nv in items[:half]:
+        src.ingest(W, nv)
+    snap = src.snapshot()
+    assert {"window_edges", "window_expiry", "window_len", "dyn_step"} <= set(snap)
+    assert np.asarray(snap["window_edges"]).shape == (T, 48, 2)
+    ends = []
+    for reader in ("port", "jax"):
+        dst = mk[reader]()
+        dst.restore(from_jax_snapshot(snap) if reader == "port" else to_jax_snapshot(snap))
+        assert dst.dyn_step == half
+        for W, nv in items[half:]:
+            dst.ingest(W, nv)
+        ends.append(dst)
+    for W, nv in items[half:]:
+        src.ingest(W, nv)
+    for dst in ends:
+        assert state_sha256(dst.snapshot()) == state_sha256(src.snapshot())
+        assert window_sha256(dst.snapshot()) == window_sha256(src.snapshot())
+    _assert_same_windowed(*ends, f"restored from {writer}")
+
+
+@pytest.mark.parametrize("mode,K", [({"window": 64}, 1), ({"window": 64}, 2),
+                                    ({"decay": 25.0}, 2)])
+def test_windowed_bank_explicit_deletions_match_jax(mode, K):
+    """Explicit deletions on a windowed bank through ``ingest_signed_stream``:
+    each tenant's deleted edges leave its ring (``_forget_window``), so the
+    clock never deletes them twice."""
+    T = 2
+    items = _items("per_tenant", T)
+    signed = [(W, nv, 1) for W, nv in items]
+    # tenant t deletes rows of its own batch 3 still in its window, then
+    # both delete an edge of batch 1 that may have expired already for one
+    D = np.stack([items[3][0][t][:6] for t in range(T)])
+    signed.insert(5, (D, np.array([6, 4]), -1))
+    signed.insert(9, (np.stack([items[8][0][t][:3] for t in range(T)]), np.array([3, 3]), -1))
+    port, ref = _port(T, K=K, **mode), _jax(T, K=K, **mode)
+    for eng in (port, ref):
+        assert eng.ingest_signed_stream(iter(signed)) == len(signed)
+    _assert_same_windowed(port, ref, f"{mode} K={K}")
+    assert port.diag.edges_deleted == 9 and port.diag.delete_batches == 2
+
+
 def test_tenant_count_mismatch_raises():
     items = _items("broadcast", 2)
     port, ref = _port(2), _jax(2)
@@ -268,8 +358,18 @@ def test_tenant_count_mismatch_raises():
                 _port(T).restore(snap)
     with pytest.raises(ValueError, match="3 tenant batches for 2 tenants"):
         port.ingest(np.zeros((3, S, 2), np.int32))
-    with pytest.raises(NotImplementedError, match="A.19"):
-        EngineConfig(r=R, batch_size=S, n_tenants=2, window=64, device="cpu")
+    # a windowed bank: both packages' snapshots restore into the port's
+    # engine of the same tenant count, with equal rings, and into no other
+    port, ref = _port(2, window=64), _jax(2, window=64)
+    for eng in (port, ref):
+        eng.ingest_stream(iter(items[:3]))
+    for snap in (port.snapshot(), from_jax_snapshot(ref.snapshot())):
+        same = _port(2, window=64)
+        same.restore(snap)
+        assert window_sha256(same.snapshot()) == window_sha256(ref.snapshot())
+        for T in (1, 3):
+            with pytest.raises(SnapshotMismatch, match="n_tenants"):
+                _port(T, window=64).restore(snap)
 
 
 def _lines(main, argv, monkeypatch=None) -> list:
@@ -298,10 +398,36 @@ def test_cli_tenant_lines_match_jax_cli(extra, monkeypatch):
             "estimate", "estimate[tenant 1]", "estimate[tenant 2]"]
 
 
-def test_cli_refuses_a_windowed_bank():
-    with pytest.raises(SystemExit, match="A.19"):
-        cli.main(["--device", "cpu", "--graph", "er", "--nodes", "20", "--edges", "40",
-                  "--estimators", "64", "--batch", "8", "--tenants", "2", "--window", "10"])
+def test_cli_refuses_a_windowed_bank(monkeypatch):
+    """A windowed bank, which the port's CLI once refused, prints the JAX
+    CLI's lines for the same flags."""
+    args = ["--graph", "er", "--nodes", "20", "--edges", "40", "--estimators", "64",
+            "--batch", "8", "--tenants", "2", "--window", "10"]
+    port = _lines(cli.main, [*args, "--device", "cpu"])
+    assert port == _lines(jax_cli.main, [*args, "--ckpt-every", "0"], monkeypatch)
+    assert port[1].startswith("dynamic: ") and port[-1].startswith("estimate[tenant 1]: ")
+
+
+@pytest.mark.parametrize("main,ref,extra", [
+    ("stream", "stream", ["--tenants", "3", "--window", "150", "--chunk", "4"]),
+    ("stream_serve", "stream_serve", ["--window", "600", "--report-every", "4"]),
+    ("stream", "stream", ["--tenants", "2", "--decay", "40", "--chunk", "2"]),
+])
+def test_cli_windowed_bank_lines_match_jax_cli(main, ref, extra, monkeypatch):
+    """``stream --tenants 3 --window 150 --chunk 4``, ``stream_serve
+    --window 600`` at its default ``--tenants 2`` and a decayed bank print
+    the JAX CLIs' lines."""
+    args = ["--graph", "planted", "--triangles", "40", "--edges", "700", "--nodes", "900",
+            "--estimators", "512", "--batch", "64", "--seed", "3", *extra]
+    mains = {"stream": (cli.main, jax_cli.main), "stream_serve": (serve_cli.main,
+                                                                  jax_serve_cli.main)}
+    port = _lines(mains[main][0], [*args, "--device", "cpu"])
+    want = _lines(mains[ref][1], [*args, "--ckpt-every", "0"] if ref == "stream" else args,
+                  monkeypatch)
+    timed = ("served ",)  # the serving CLI's wall-clock line
+    assert [ln for ln in port if not ln.startswith(timed)] == [
+        ln for ln in want if not ln.startswith(timed)]
+    assert any(ln.startswith("stream: m=") and "live=" in ln for ln in port)
 
 
 # ---------------------------------------------------------------------------
