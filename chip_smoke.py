@@ -52,6 +52,13 @@ Phases, each of which raises on failure (nothing is caught):
              logits within 1e-4 of the largest |logit| of the JAX
              reference's (golden/lm_small.json, every 4th vocab column),
              equal argmax, and the CLI decoding loop's greedy tokens equal;
+  golden_train  the LM training path (train/steps.py, autograd through
+             lm_loss) for each SMOKE arch in float32 with TF32 off, seed 0's
+             weights drawn on the card: the step-0 loss within 1e-5
+             relative, each leaf's gradient norm and every 4th column of
+             the embedding's gradient within 1e-4, and 3 steps of the
+             arch's optimizer within 1e-4 of the JAX reference's records
+             (golden/train_small.json);
   full       the paper's bulk_s1m_r2m shape (r = 2^21 estimators, batch
              s = 2^20, chunk K = 4) through TriangleCountEngine + run_stream on
              a 9,088,608-edge planted-triangle stream: two chunks, then a
@@ -181,6 +188,25 @@ Phases, each of which raises on failure (nothing is caught):
              It records tok/s, decode seconds, one step's device busy time,
              the params' bytes and each decode loop's peak bytes beyond
              what was already held. No kernel of csrc/ is on this path;
+  train_full  the LM training path at full width, bfloat16, through the
+             training CLI's functions at its defaults (batch 8, seq 256,
+             adamw 3e-4): smollm-135m FULL for 30 steps with asynchronous
+             checkpoints every 10 (the logged loss falls); a run cut at step
+             15 by a failure that outlasts its retries and resumed from the
+             step-10 checkpoint, equal bit for bit (deterministic algorithms
+             on) to a run loaded from that checkpoint over the same batches;
+             granite-moe-1b-a400m FULL for 5 steps (finite losses). It
+             records ms a step, tokens/s, a step's device busy ms and
+             operations, peak bytes, the params' and optimizer state's
+             bytes and MFU (6 N tokens over the step's seconds at 989e12
+             FLOP/s). No kernel of csrc/ is on this path;
+  train_elastic  phase full's state after its two chunks resized by
+             train.elastic.shrink_or_grow_estimators to 2^20 and 2^22 (the
+             prefix kept, the appended rows empty), each then ingesting the
+             ragged tail and one more chunk on the kernel route, equal to
+             the plain route; the state resharded onto estimators=4 on this
+             card, read back unchanged, and one pjit update equal to the
+             same update unsharded;
   kernels    each kernel and its plain version at the main path's full-size
              shapes: equal, and timed with CUDA events beside its bound and,
              where one PyTorch call computes the same function, that call;
@@ -215,7 +241,10 @@ Phases, each of which raises on failure (nothing is caught):
              repro_torch.launch.stream_serve prints the JAX serving CLI's
              rolling query lines and, under --elastic with a fault plan, its
              session, snapshot-drill and served lines
-             (golden/serve_small.json).
+             (golden/serve_small.json); python -m repro_torch.launch.train
+             --smoke --steps 3 --batch 2 --seq 16 on a fresh --ckpt-dir
+             prints the JAX CLI's arch= line and a first logged loss within
+             3e-2 of its (golden/train_small.json).
 
 Tolerance: exact. Every kernel computes integer or bit-defined results
 (segment_sum sums integer-valued float64 below 2^53, where any order of its
@@ -252,6 +281,8 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12
 # FP64 outside the tensor cores (NVIDIA data sheet, H100 SXM)
 FP64_OPS_PER_S = 34e12
+# dense bfloat16 on the tensor cores (NVIDIA data sheet, H100 SXM): MFU's divisor
+BF16_FLOPS_PER_S = 989e12
 FULL = {"r": 2**21, "s": 2**20, "K": 4, "edges": 9_088_608, "triangles": 262_144,
         "vertices": 2**22, "seed": 7, "groups": 9, "pools": 8, "tenants": 4}
 KERNELS = {  # name -> (source, TPU kernel it replaces)
@@ -2995,6 +3026,308 @@ def phase_serve_full(dev, card: str) -> dict:
     return out
 
 
+# the bfloat16 tolerance of the training tests' first logged loss (relative)
+BF16_LOSS_RTOL = 3e-2
+
+
+def phase_golden_train(dev) -> None:
+    """The LM training path against the reference's float32 records
+    (golden/train_small.json, written by JAX), for each SMOKE arch with
+    seed 0's weights drawn on the card, TF32 off: the step-0 loss, each
+    leaf's gradient norm and every 4th column of the embedding's gradient,
+    and the losses of 3 steps of the arch's optimizer on the golden
+    batches, each within the CPU tests' tolerance."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import rng
+    from repro_torch.configs.cells import LM_ARCHS
+    from repro_torch.data.tokens import lm_batches, synthetic_corpus
+    from repro_torch.launch.train import load_config
+    from repro_torch.models import transformer as tt
+    from repro_torch.train.optimizer import get_optimizer
+    from repro_torch.train.steps import make_lm_train_step, value_and_grad
+
+    gold = json.loads((ROOT / "src/repro_torch/golden/train_small.json").read_text())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for arch, g in gold["archs"].items():
+        cfg = dataclasses.replace(load_config(arch, smoke=True), dtype=torch.float32)
+        params = tt.init_params(rng.PRNGKey(gold["param_seed"], dev), cfg)
+        opt = get_optimizer(LM_ARCHS[arch][1], gold["lr"])
+        step = make_lm_train_step(cfg, opt)
+        data = lm_batches(synthetic_corpus(gold["corpus_tokens"], cfg.vocab, gold["data_seed"]),
+                          gold["B"], gold["S"], gold["data_seed"])
+        state, losses = opt.init(params), []
+        for i in range(gold["steps"]):
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in next(data).items()}
+            if i == 0:
+                loss, grads = value_and_grad(
+                    lambda p, b: tt.lm_loss(p, cfg, b["tokens"], b["labels"]), params, batch)
+            params, state, m = step(params, state, batch, None)
+            losses.append(float(m["loss"]))
+        if not all(bool(torch.isfinite(x).all()) for x in grads.values()):
+            raise AssertionError(f"golden_train {arch}: gradients not finite")
+        errs = {"loss_rel_err": abs(float(loss) - g["loss"]) / abs(g["loss"])}
+        errs["grad_norm_rel_err"] = max(
+            abs(float(torch.linalg.vector_norm(grads[k].double())) - n) / n
+            for k, n in g["grad_norms"].items())
+        emb = grads["embed"].cpu().numpy()[:, ::gold["column_stride"]]
+        errs["embed_grad_err"] = float(np.abs(emb - np.array(g["embed_grad"])).max()) / g[
+            "embed_grad_max"]
+        errs["step_loss_rel_err"] = max(abs(a - b) / abs(b)
+                                        for a, b in zip(losses, g["step_losses"]))
+        for name, limit in (("loss_rel_err", gold["loss_rtol"]),
+                            ("grad_norm_rel_err", gold["grad_tol"]),
+                            ("embed_grad_err", gold["grad_tol"]),
+                            ("step_loss_rel_err", gold["step_loss_rtol"])):
+            if errs[name] > limit:
+                raise AssertionError(f"golden_train {arch}: {name} {errs[name]} > {limit}")
+        out[arch] = {**errs, "step_losses": losses}
+    emit({"phase": "golden_train", "archs": out, "tf32": False, "ok": True})
+
+
+def train_records(run: dict, card: str) -> dict:
+    """One train step of a ``launch.train.build`` result at its batch:
+    ms a step (CUDA events over 5 steps after 2 warm-up steps, each on the
+    state the last left), tokens/s, one step's device busy ms and device
+    operations (torch.profiler), the step's peak bytes beyond what was
+    held before it, the params' and the optimizer state's bytes, and MFU =
+    6 N tokens / (step s x 989e12), N the params a token meets (the active
+    params of an MoE)."""
+    import torch
+
+    cfg, dev = run["cfg"], run["device"]
+    data = run["batches"]()
+    batch = next(data)
+    tokens = batch["tokens"].size
+    state = [(run["params"], run["opt_state"])]
+
+    def one():
+        state[0], _ = run["step_fn"](state[0], batch, 0)
+
+    ms = time_ms(one, reps=5, warmup=2)
+    busy = device_busy(one, top=6)
+    torch.cuda.synchronize(dev)
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    one()
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    n = cfg.active_param_count()
+    return {"card": card, "ms_per_step": ms, "tokens_per_step": tokens,
+            "tokens_per_s": tokens / (ms / 1e3), "step_profile": busy,
+            "device_idle_share": 1.0 - busy["device_busy_ms"] / ms,
+            "step_peak_bytes_beyond_held": peak - held, "held_bytes": held,
+            "param_bytes": nbytes(*tensors(state[0][0])),
+            "opt_state_bytes": nbytes(*tensors(state[0][1])), "params_per_token": n,
+            "mfu": 6 * n * tokens / (ms / 1e3 * BF16_FLOPS_PER_S)}
+
+
+def tensors(tree):
+    """The tensors of a tree of dicts."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tensors(v)
+    else:
+        yield tree
+
+
+class InjectedFailure(RuntimeError):
+    """The step failure phase train_full injects."""
+
+
+def phase_train_full(dev, card: str) -> dict:
+    """The LM training path at full width, bfloat16, through the training
+    CLI's own functions (``launch.train.build`` and ``train``) at the
+    reference CLI's defaults: batch 8, seq 256, adamw at 3e-4, 2,000,000
+    corpus tokens, remat off. (a) smollm-135m FULL, 30 steps with
+    asynchronous checkpoints every 10: the last logged loss below the
+    first. (b) Kill and resume: a run on a fresh directory saves at step
+    10 and is cut at step 15 by a failure that outlasts max_retries = 1
+    (restored once to step 10, failing at 15 again); a third run on that
+    directory resumes at step 11 and ends at step 29; it must equal, bit
+    for bit, a run that loads the step-10 checkpoint and takes the same 19
+    steps on the stream's first 19 batches (a resumed run draws from the
+    start of a fresh stream, as in the reference). Both run under
+    ``torch.use_deterministic_algorithms(True)`` (cuBLAS on one stream with
+    a fixed workspace, and the embedding's and the loss gather's backward
+    by their sorted, deterministic kernels rather than atomics), so the
+    comparison is exact. (c) granite-moe-1b-a400m FULL, 5 steps at the
+    same batch and sequence: finite losses. Each records a step's ms,
+    tokens/s, device busy ms and operations, peak bytes, the params' and
+    the optimizer state's bytes and MFU."""
+    import torch
+
+    from repro_torch.launch.train import build, train
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.trainer import TrainerConfig, run_loop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = {"batch": 8, "seq": 256, "lr": 3e-4, "corpus_tokens": 2_000_000, "seed": 0}
+    root = Path(tempfile.mkdtemp(prefix="train_full_"))
+    out = {"card": card, **args}
+    try:
+        def smollm():
+            return build("smollm-135m", False, args["lr"], args["seed"], args["batch"],
+                         args["seq"], args["corpus_tokens"], dev.type)
+
+        def tcfg(name, **kw):
+            return TrainerConfig(ckpt_dir=str(root / name), ckpt_every=10, async_save=True,
+                                 log_every=10, **kw)
+
+        run = smollm()
+        _, log, seconds, tput = train(run, 30, tcfg("a"), args["lr"], args["batch"], args["seq"])
+        if not (log.losses and all(math.isfinite(x) for x in log.losses)
+                and log.losses[-1] < log.losses[0]):
+            raise AssertionError(f"train_full smollm: losses {log.losses} do not fall")
+        out["smollm-135m"] = {"run_seconds": seconds, "run_tokens_per_s": tput,
+                              "logged_steps": log.steps, "logged_losses": log.losses,
+                              **train_records(smollm(), card)}
+        shutil.rmtree(root / "a")
+
+        # (b) kill and resume
+        cut = smollm()
+
+        def failing(state, batch, i):
+            if i == 15:
+                raise InjectedFailure(f"injected failure at step {i}")
+            return cut["step_fn"](state, batch, i)
+
+        try:
+            run_loop(failing, (cut["params"], cut["opt_state"]), cut["batches"](), 30,
+                     tcfg("b", max_retries=1))
+        except InjectedFailure:
+            pass
+        else:
+            raise AssertionError("train_full: the injected failure did not cut the run")
+        if CheckpointManager(str(root / "b")).steps() != [10]:
+            raise AssertionError("train_full: the cut run left "
+                                 f"{CheckpointManager(str(root / 'b')).steps()}, not [10]")
+        torch.use_deterministic_algorithms(True)
+        try:
+            resumed = smollm()
+            (params, opt_state), rlog = run_loop(
+                resumed["step_fn"], (resumed["params"], resumed["opt_state"]),
+                resumed["batches"](), 30, tcfg("b"))
+            ref = smollm()
+            st, _ = CheckpointManager(str(root / "b")).restore(
+                (ref["params"], ref["opt_state"]), step=10)
+            data = ref["batches"]()
+            for i in range(11, 30):
+                st, _ = ref["step_fn"](st, next(data), i)
+            torch.cuda.synchronize(dev)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        if rlog.restarts != 1 or rlog.steps != [20] or int(opt_state["count"]) != 30:
+            raise AssertionError(f"train_full resume: restarts {rlog.restarts}, logged "
+                                 f"{rlog.steps}, count {int(opt_state['count'])}")
+        for k in params:
+            for name, got, want in (("param", params[k], st[0][k]),
+                                    ("m", opt_state["m"][k], st[1]["m"][k]),
+                                    ("v", opt_state["v"][k], st[1]["v"][k])):
+                if not torch.equal(got, want):
+                    raise AssertionError(f"train_full resume: {name} {k} differs from the "
+                                         "run loaded from the step-10 checkpoint")
+        out["resume"] = {"deterministic_algorithms": True, "cut_at_step": 15,
+                         "resumed_from_step": 10, "end_step": 29, "restarts": rlog.restarts,
+                         "bit_equal": True, "resumed_run_seconds": rlog.seconds}
+        del run, cut, resumed, ref, params, opt_state, st
+        torch.cuda.empty_cache()
+
+        # (c) the MoE at full width
+        moe = build("granite-moe-1b-a400m", False, args["lr"], args["seed"], args["batch"],
+                    args["seq"], args["corpus_tokens"], dev.type)
+        state, data, losses = (moe["params"], moe["opt_state"]), moe["batches"](), []
+        for i in range(5):
+            state, m = moe["step_fn"](state, next(data), i)
+            losses.append(float(m["loss"]))
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"train_full granite: losses {losses} not finite")
+        moe["params"], moe["opt_state"] = state
+        out["granite-moe-1b-a400m"] = {"losses": losses, **train_records(moe, card)}
+        del moe, state
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "train_full", **out, "ok": True})
+    return out
+
+
+def phase_train_elastic(dev, full: dict) -> dict:
+    """Phase full's r = 2^21 state after its two chunks, resized by
+    ``train.elastic.shrink_or_grow_estimators`` to 2^20 and 2^22: the kept
+    prefix bit-equal and the appended rows empty; each resized state then
+    ingests phase full's ragged tail (per-batch route) and one further
+    chunk (chunk 1's edges again, at step 2K + 1) on the kernel route,
+    equal bit for bit to the plain route (eager searches, the scan chunk).
+    Then ``reshard`` of the 2^21 state onto ``estimators=4`` on this card
+    and one pjit update with the tail equal to the same update
+    unsharded."""
+    import torch
+
+    from repro_torch import rng as trng
+    from repro_torch.core import bulk
+    from repro_torch.core.distributed import GLOBAL, make_pjit_update, scheme_state_specs
+    from repro_torch.core.state import init_state
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import make_stream_mesh
+    from repro_torch.train.elastic import reshard, shrink_or_grow_estimators
+
+    edges, s, K, r = full["edges"], FULL["s"], FULL["K"], FULL["r"]
+    key = trng.PRNGKey(FULL["seed"], dev)
+    nv = torch.full((K,), s, dtype=torch.int32, device=dev)
+    chunks = [torch.from_numpy(edges[c * K * s:(c + 1) * K * s].reshape(K, s, 2)).to(dev)
+              for c in range(2)]
+    state = init_state(r, dev)
+    for c in range(2):
+        state = bulk.bulk_update_chunk(state, chunks[c], nv, key, c * K, backend="kernel")
+    W_tail, n_tail = tail_batch(edges, dev)
+    k_tail = trng.fold_in(key, 2 * K)
+    out = {}
+    for new_r in (2**20, 2**22):
+        rs = shrink_or_grow_estimators(state, new_r)
+        keep = min(new_r, r)
+        for f in ("f1", "chi", "f2", "has_f3"):
+            require_equal(f"train_elastic r={new_r} prefix {f}", getattr(rs, f)[:keep],
+                          getattr(state, f)[:keep])
+        if new_r > r and not (bool((rs.f1[r:] == -1).all()) and bool((rs.f2[r:] == -1).all())
+                              and bool((rs.chi[r:] == 0).all()) and not bool(rs.has_f3[r:].any())):
+            raise AssertionError(f"train_elastic r={new_r}: the appended rows are not empty")
+        require_equal(f"train_elastic r={new_r} m_seen", rs.m_seen, state.m_seen)
+        reset_launches()
+        got = bulk.bulk_update_all(rs, W_tail, n_tail, k_tail, "kernel")
+        got = bulk.bulk_update_chunk(got, chunks[0], nv, key, 2 * K + 1, backend="kernel")
+        torch.cuda.synchronize(dev)
+        launches = {k: LAUNCHES[k] for k in ("fused_ingest", "multisearch_counts",
+                                             "bitonic_sort_tiles", "segscan")}
+        if launches["fused_ingest"] == 0 or launches["multisearch_counts"] == 0:
+            raise AssertionError(f"train_elastic r={new_r}: kernels not launched {launches}")
+        want = bulk.bulk_update_all(rs, W_tail, n_tail, k_tail, "eager")
+        want = bulk.bulk_update_chunk(want, chunks[0], nv, key, 2 * K + 1, backend="scan",
+                                      search="eager")
+        for f in want._fields:
+            require_equal(f"train_elastic r={new_r} ingest {f}", getattr(got, f),
+                          getattr(want, f))
+        out[str(new_r)] = {"prefix_equal": True, "kernel_equals_plain": True,
+                           "launches": launches}
+    mesh = make_stream_mesh("estimators=4", dev.type, host_devices=4)
+    placed = reshard(state, mesh, scheme_state_specs(GLOBAL, ("estimators",)))
+    back = placed.gather(dev)
+    for f in state._fields:
+        require_equal(f"train_elastic reshard {f}", getattr(back, f), getattr(state, f))
+    update = make_pjit_update(mesh, "coordinated_xla", GLOBAL, r=r, search="kernel")
+    got = update(placed, W_tail, n_tail, k_tail).gather(dev)
+    want = bulk.bulk_update_all(state, W_tail, n_tail, k_tail, "kernel")
+    for f in want._fields:
+        require_equal(f"train_elastic pjit after reshard {f}", getattr(got, f), getattr(want, f))
+    out["reshard_estimators_4"] = {"roundtrip_equal": True, "pjit_equals_unsharded": True}
+    emit({"phase": "train_elastic", "r": r, **out, "ok": True})
+    return out
+
+
 def cli_lines(args) -> list:
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
@@ -3065,12 +3398,35 @@ def phase_cli() -> None:
                "sessions": sorted(ln for ln in lines if ln.startswith("session "))}
     if elastic != {"lines": serve["elastic"]["lines"], "sessions": serve["elastic"]["sessions"]}:
         raise AssertionError(f"cli: elastic serve lines {elastic} != JAX CLI {serve['elastic']}")
+    # the training CLI on a fresh --ckpt-dir: the JAX CLI's arch= line and,
+    # within the bfloat16 tolerance, its first logged loss
+    tgold = json.loads((ROOT / "src/repro_torch/golden/train_small.json").read_text())["cli"]
+    ckpt_dir = tempfile.mkdtemp(prefix="train_cli_")
+    try:
+        text = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *tgold["args"],
+             "--ckpt-dir", ckpt_dir], cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            capture_output=True, text=True, timeout=600, check=True).stdout
+    finally:
+        shutil.rmtree(ckpt_dir)
+    train_lines = text.splitlines()
+    first = float(next(ln for ln in train_lines if ln.startswith("loss: first logged ="))
+                  .split("=")[1].split()[0])
+    if train_lines[0] != tgold["arch_line"]:
+        raise AssertionError(f"cli: {train_lines[0]!r} != JAX CLI {tgold['arch_line']!r}")
+    if abs(first - tgold["first_loss"]) > BF16_LOSS_RTOL * tgold["first_loss"]:
+        raise AssertionError(f"cli: first logged loss {first} vs JAX CLI {tgold['first_loss']}")
     emit({"phase": "cli", "estimate_line": est_line, "local_line": local_line,
           "resilience_lines": got, "diag_report": diag["report"], "mesh_lines": plan_lines,
-          "serve_lines": fixed, "elastic_serve": elastic, "ok": True})
+          "serve_lines": fixed, "elastic_serve": elastic, "train_lines": train_lines,
+          "ok": True})
 
 
 def main() -> int:
+    # train_full's resume check runs under torch.use_deterministic_algorithms,
+    # which asks for a fixed cuBLAS workspace; this is the size PyTorch gives
+    # cuBLAS on Hopper by default
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import torch
     except ImportError:
@@ -3093,6 +3449,7 @@ def main() -> int:
     phase_naive(dev)
     phase_golden_dynamic(dev)
     phase_golden_serve(dev)
+    phase_golden_train(dev)
     full = phase_full(dev)
     local = phase_local_full(dev, full)
     dynamic = phase_dynamic_full(dev, full)
@@ -3101,6 +3458,8 @@ def main() -> int:
     plan_rows = phase_plans_full(dev, card, full, tenants)
     phase_elastic_full(dev, card, full, local, tenants)
     phase_serve_full(dev, card)
+    phase_train_full(dev, card)
+    phase_train_elastic(dev, full)
     rows = phase_kernels(dev, full, local, dynamic)
     rows += bank_kernel_rows(dev, tenants) + plan_rows
     phase_cli()

@@ -1,6 +1,8 @@
-"""The LM architectures the serving CLI runs (``repro.configs.cells``):
-``LM_ARCHS`` maps each name to its config module and its optimizer's name.
-The reference's shape tables and cell functions come with the port of training."""
+"""The LM architectures the serving and training CLIs run
+(``repro.configs.cells``): ``LM_ARCHS`` maps each name to its config module
+and its optimizer's name. The reference's shape tables and cell builders
+(abstract cells for its 512-device dry run) are still to port, with
+``train/sharding.py`` (ROADMAP A.16 (ii))."""
 LM_ARCHS = {
     "smollm-135m": ("repro_torch.configs.smollm_135m", "adamw"),
     "qwen3-4b": ("repro_torch.configs.qwen3_4b", "adamw"),

@@ -25,12 +25,13 @@ reference:
 ``TenantQueues`` holds the elastic serving tier's bounded per-tenant
 queues. ``stack_batches`` / ``superbatches`` assemble K ``(W, n_valid)``
 batches into the unit ``TriangleCountEngine.ingest_chunk`` consumes.
+``work_stealing_shards`` merges per-file shard iterators round-robin.
 """
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterable, Iterator, Optional
+from typing import Callable, Iterable, Iterator, Optional
 
 import numpy as np
 
@@ -265,3 +266,23 @@ def superbatches(batch_iter: Iterable, k: int, batch_size: Optional[int] = None)
             buf = []
     for item in buf:
         yield "batch", item
+
+
+def work_stealing_shards(shard_fns: list[Callable[[], Iterator]]) -> Iterator:
+    """Strict round-robin over per-file shard iterators, dropping a shard
+    from the rotation only when it is exhausted (``StopIteration``).
+
+    This skips on exhaustion only, not on latency: a slow shard is waited
+    on every rotation (``next()`` blocks), so one straggling file gates the
+    merged stream. Wrap the merged iterator in ``PrefetchQueue(deadline_s=
+    ...)`` for bounded-staleness straggler tolerance; this helper only
+    balances shard lengths (short shards leave the rotation early and the
+    rest keep yielding)."""
+    iters = [fn() for fn in shard_fns]
+    live = list(range(len(iters)))
+    while live:
+        for i in list(live):
+            try:
+                yield next(iters[i])
+            except StopIteration:
+                live.remove(i)

@@ -13,7 +13,9 @@ for comparison; they need neither framework's arrays, only numpy.
 
 ``from_jax_params`` carries a transformer's param dict the other way: the
 reference's params as numpy arrays (``jax.device_get``) into the port's
-tensors, so both packages can run one model on the same weights.
+tensors, so both packages can run one model on the same weights;
+``from_jax_opt_state`` carries an optimizer's state (``train/optimizer.py``
+keeps the reference's keys), so both can train on from one state.
 """
 from __future__ import annotations
 
@@ -100,24 +102,50 @@ def window_sha256(snap: dict) -> str:
     return h.hexdigest()
 
 
+def _tensor(a):
+    """A numpy array as a CPU tensor; a bfloat16 array (numpy's
+    ``ml_dtypes.bfloat16``, which torch cannot take) crosses as its bits."""
+    import torch
+
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a).view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
 def from_jax_params(params_np: dict, cfg, device="cpu") -> dict:
     """The reference's transformer params (a dict of numpy arrays) as the
     port's tensors on ``device``. The port keeps the reference's keys and
-    layouts (``models.transformer``), so each array keeps its shape; a
-    bfloat16 array (numpy's ``ml_dtypes.bfloat16``, which torch cannot
-    take) crosses as its uint16 bits. Every leaf but the float32 router
-    must be in ``cfg.dtype``."""
+    layouts (``models.transformer``), so each array keeps its shape. Every
+    leaf but the float32 router must be in ``cfg.dtype``."""
     import torch
 
     out = {}
     for k, a in params_np.items():
-        a = np.asarray(a)
-        if a.dtype.name == "bfloat16":
-            t = torch.from_numpy(np.array(a).view(np.uint16)).view(torch.bfloat16)
-        else:
-            t = torch.from_numpy(np.array(a))
+        t = _tensor(a)
         want = torch.float32 if k == "router" else cfg.dtype
         if t.dtype != want:
             raise ValueError(f"param {k!r} is {t.dtype}, the config needs {want}")
         out[k] = t.to(device)
+    return out
+
+
+def from_jax_opt_state(opt_state_np: dict, params_like: dict) -> dict:
+    """The reference's optimizer state (its tree of numpy arrays: adamw's
+    ``m``/``v``/``count``, adafactor's ``f``/``count``, sgd's ``mu``) as the
+    port's, on the device of ``params_like``'s tensors. Moments keep their
+    float32 and the count its int32; a per-param entry must name a param of
+    ``params_like``."""
+    device = next(iter(params_like.values())).device
+
+    def conv(tree):
+        if isinstance(tree, dict):
+            return {k: conv(v) for k, v in tree.items()}
+        return _tensor(tree).to(device)
+
+    out = conv(opt_state_np)
+    for group in ("m", "v", "mu", "f"):
+        if group in out and set(out[group]) != set(params_like):
+            raise ValueError(f"opt state {group!r} names {sorted(out[group])}, the params "
+                             f"{sorted(params_like)}")
     return out

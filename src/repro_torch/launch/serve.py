@@ -33,12 +33,13 @@ def load_config(arch: str, smoke: bool):
     return dataclasses.replace(cfg, remat=False)
 
 
+@torch.no_grad()
 def generate(params: dict, cfg, prompt: torch.Tensor, gen: int,
              keep_logits: bool = False) -> tuple[torch.Tensor, list]:
     """Prefill ``prompt`` (B, P) token by token, then decode ``gen - 1``
     more tokens greedily (the reference's loop: P + gen - 1 steps).
     Returns the (B, P + gen) int32 sequence and, with ``keep_logits``,
-    every step's (B, V) logits."""
+    every step's (B, V) logits. Runs without autograd."""
     B, P = prompt.shape
     max_len = P + gen
     cache = init_cache(cfg, B, max_len, prompt.device)

@@ -21,11 +21,22 @@ both packages.
   scalar, so a decode loop never waits on the device for it.
 
 The layers run one after another (the reference scans over the stack).
-The reference's single-program options ``remat``, ``fsdp_params`` and
-``fsdp_layer_gather`` are accepted and have no effect on one device:
-``forward`` keeps no activations for a backward, and there is nothing to
-shard. Training (gradients, optimizers) is not ported; ``lm_loss`` gives
-the loss's value.
+Training runs through PyTorch's autograd: ``lm_loss`` and everything under
+it (the online softmax, the MoE's index writes on fresh buffers, the norms,
+rope, the chunked cross entropy) is differentiable, and ``train/steps.py``
+takes its gradient. As in the reference, ``lm_loss`` recomputes each loss
+chunk's logits in the backward (one ``torch.utils.checkpoint`` a chunk),
+and ``cfg.remat`` recomputes each layer in the backward (one checkpoint a
+layer, the reference's ``jax.checkpoint`` with nothing saveable). Remat
+changes memory, not values: on the CPU the gradients are bit-identical
+with and without it. The reference's inner checkpoint of each attention
+key step is not reproduced: the attention stays a plain loop, whose
+per-step probabilities autograd keeps, which the training shapes of this
+port (sequences of a few hundred tokens) hold easily. ``decode_step`` runs
+under ``torch.no_grad()``, so serving with params that require grad builds
+no graph and its in-place cache writes never meet autograd. The options
+``fsdp_params`` and ``fsdp_layer_gather`` are accepted and have no effect
+on one device.
 """
 from __future__ import annotations
 
@@ -36,6 +47,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import rng
 from repro_torch.models.layers import dense_init, layer_norm, rms_norm, rope, swiglu
@@ -76,7 +88,7 @@ class TransformerConfig:
     dtype: Any = torch.bfloat16
     chunk_q: int = 512
     chunk_k: int = 512
-    remat: bool = False  # no effect here (see the module docstring)
+    remat: bool = False  # recompute each layer in the backward (module docstring)
     grad_accum: int = 1
     tie_embeddings: bool = True
     fsdp_params: bool = False  # no effect on one device
@@ -378,10 +390,26 @@ def forward(params: dict, cfg: TransformerConfig, tokens: Tensor,
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=h.device)[None].expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+
+    def block(hh, lp):
+        h2, (_, _, a) = _layer(cfg, hh, lp, positions, positions)
+        return h2, a
+
     for layer in range(cfg.n_layers):
-        h, (_, _, a) = _layer(cfg, h, _layer_params(params, layer), positions, positions)
+        lp = _layer_params(params, layer)
+        if remat:
+            h, a = _recompute(block, h, lp)
+        else:
+            h, a = block(h, lp)
         aux = aux + a
     return _norm(h, params["ln_f"], params.get("ln_f_b"), cfg.norm), aux
+
+
+def _recompute(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward, not
+    kept (``jax.checkpoint``); nothing in it draws randomness."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def logits_fn(params: dict, cfg: TransformerConfig, h: Tensor) -> Tensor:
@@ -391,20 +419,28 @@ def logits_fn(params: dict, cfg: TransformerConfig, h: Tensor) -> Tensor:
 
 def lm_loss(params: dict, cfg: TransformerConfig, tokens: Tensor, labels: Tensor,
             loss_chunk: int = 2048) -> Tensor:
-    """Causal LM loss (its value): the cross entropy over vocab-sized
-    logits computed one token chunk at a time (chunk x V, in the params'
-    dtype, then float32), plus the MoE aux loss."""
+    """Causal LM loss: the mean cross entropy over vocab-sized logits
+    computed one token chunk at a time (chunk x V, in the params' dtype,
+    then float32), plus the MoE aux loss. Under autograd each chunk's
+    logits are recomputed in the backward, not kept, so the full (tokens x
+    vocab) matrix never exists."""
     B, S = tokens.shape
     h, aux = forward(params, cfg, tokens)
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     T = B * S
     hf, lf = h.reshape(T, -1), labels.reshape(T).long()
+
+    def chunk_nll(hc, lc):
+        logits = (hc @ w).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, lc[:, None])[:, 0]
+        return torch.sum(logz - ll)
+
+    grad = torch.is_grad_enabled()
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for lo in range(0, T, min(loss_chunk, T)):
-        logits = (hf[lo:lo + loss_chunk] @ w).float()
-        logz = torch.logsumexp(logits, dim=-1)
-        ll = logits.gather(-1, lf[lo:lo + loss_chunk, None])[:, 0]
-        total = total + torch.sum(logz - ll)
+        hc, lc = hf[lo:lo + loss_chunk], lf[lo:lo + loss_chunk]
+        total = total + (_recompute(chunk_nll, hc, lc) if grad else chunk_nll(hc, lc))
     return total / T + aux
 
 
@@ -418,11 +454,13 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int, device="cpu") -
             "pos": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+@torch.no_grad()
 def decode_step(params: dict, cfg: TransformerConfig, cache: dict,
                 tokens: Tensor) -> tuple[Tensor, dict]:
     """One decode step: tokens (B, 1) given a filled cache -> (logits
     (B, 1, V), cache). Writes this step's keys and values into the cache's
-    tensors in place at ``pos`` and returns the cache with ``pos + 1``."""
+    tensors in place at ``pos`` and returns the cache with ``pos + 1``.
+    Runs without autograd (module docstring)."""
     B = tokens.shape[0]
     S_max = cache["k"].shape[2]
     pos = cache["pos"]

@@ -15,10 +15,22 @@ keep-k, optionally asynchronous (``repro.train.checkpoint`` without jax).
   * In async mode a writer thread does the disk work; its error is re-raised
     by the next ``wait()``.
 
-Arrays are named as ``jax.tree_util.tree_flatten_with_path`` names a tree
-of dicts (``"['chi']"``, nested entries joined by ``/``), so a checkpoint
-directory written by either package restores in the other. One host writes
-the one shard.
+Arrays are named as ``jax.tree_util.tree_flatten_with_path`` names a tree:
+a dict entry ``['chi']`` (keys sorted), a tuple or list entry ``[0]``, a
+NamedTuple field ``.f1``, nested entries joined by ``/`` (the trainer's
+``(params, opt_state)`` gives ``[0]/['embed']`` and ``[1]/['count']``), so
+a checkpoint directory written by either package restores in the other.
+One host writes the one shard.
+
+Leaves may be numpy arrays, scalars or tensors on any device; a tensor is
+copied to the host when ``save`` is called. A bfloat16 leaf is stored as
+its 2-byte words (``|V2``, what the reference's file holds for its
+bfloat16 arrays) and its checksum is reckoned over the name ``bfloat16``,
+as the reference reckons it at save time, and verified under that name.
+``restore`` reads every leaf back as the template asks: a tensor template
+gives a tensor of its dtype on its device (a bfloat16 one from the stored
+words, bit for bit; a stored dtype other than the template's raises
+ValueError, a config mismatch), anything else the stored numpy array.
 
 ``checkpoint.write`` is a fault site (``repro_torch.engine.faults``) at the
 entry of the writer: ``raise`` fails the save (in async mode on the next
@@ -37,6 +49,7 @@ import time
 from typing import Any, Optional
 
 import numpy as np
+import torch
 
 
 class CheckpointCorrupt(RuntimeError):
@@ -51,35 +64,91 @@ def _check_fault(site: str):
     return check_fault(site)
 
 
-def _name(prefix: str, key) -> str:
-    return f"{prefix}/[{key!r}]" if prefix else f"[{key!r}]"
+def _join(prefix: str, part: str) -> str:
+    return f"{prefix}/{part}" if prefix else part
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
 def _leaves(tree, prefix: str = ""):
     """(name, leaf) pairs in ``tree_flatten_with_path`` order: dict entries
-    by sorted key, everything that is not a dict a leaf."""
+    by sorted key, tuple and list entries by index, NamedTuple fields in
+    order; None holds no leaf, and everything else is a leaf."""
     if isinstance(tree, dict):
         for k in sorted(tree):
-            yield from _leaves(tree[k], _name(prefix, k))
-    else:
+            yield from _leaves(tree[k], _join(prefix, f"[{k!r}]"))
+    elif _is_namedtuple(tree):
+        for f in tree._fields:
+            yield from _leaves(getattr(tree, f), _join(prefix, f".{f}"))
+    elif isinstance(tree, (tuple, list)):
+        for i, x in enumerate(tree):
+            yield from _leaves(x, _join(prefix, f"[{i}]"))
+    elif tree is not None:
         yield prefix, tree
 
 
+def _host(leaf) -> np.ndarray:
+    """A leaf as the host array the shard file stores: a tensor copied off
+    its device, bfloat16 as its 2-byte words (``|V2``)."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().to("cpu", copy=True)  # a CPU tensor is copied too
+        if t.dtype == torch.bfloat16:
+            return t.contiguous().view(torch.int16).numpy().view("V2")
+        return t.numpy()
+    return np.asarray(leaf)
+
+
+def _dtype_name(arr: np.ndarray) -> str:
+    """The dtype name a checksum is reckoned over: the 2-byte words of a
+    bfloat16 leaf hash as ``bfloat16``, every other array by its own
+    dtype."""
+    return "bfloat16" if arr.dtype == np.dtype("V2") else str(arr.dtype)
+
+
 def _flatten_with_names(tree) -> dict[str, np.ndarray]:
-    return {name: np.asarray(leaf) for name, leaf in _leaves(tree)}
+    return {name: _host(leaf) for name, leaf in _leaves(tree)}
+
+
+def _from_host(arr: np.ndarray, like):
+    """The stored array in the template leaf's type: for a tensor template
+    a tensor on the template's device (bfloat16 from its words), else the
+    stored array. A stored dtype other than the tensor template's raises
+    ValueError, a config mismatch."""
+    if not isinstance(like, torch.Tensor):
+        return arr
+    if arr.dtype.kind == "V":
+        if arr.dtype != np.dtype("V2") or like.dtype != torch.bfloat16:
+            raise ValueError(f"saved {arr.dtype} words do not read as {like.dtype}")
+        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr))
+        if t.dtype != like.dtype:
+            raise ValueError(f"saved {arr.dtype} does not read as {like.dtype}")
+    return t.to(like.device)
 
 
 def _unflatten_like(tree, named: dict[str, np.ndarray], prefix: str = ""):
     """``tree``'s structure with each leaf replaced by the array of the same
-    name. A missing name raises KeyError and a shape that differs from the
-    template's raises ValueError: both mean a config mismatch, not
-    corruption."""
+    name (``_from_host``). A missing name raises KeyError, and a shape or
+    dtype that differs from the template's raises ValueError: each means a
+    config mismatch, not corruption."""
     if isinstance(tree, dict):
-        return {k: _unflatten_like(v, named, _name(prefix, k)) for k, v in tree.items()}
+        return {k: _unflatten_like(v, named, _join(prefix, f"[{k!r}]")) for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return type(tree)(*(_unflatten_like(getattr(tree, f), named, _join(prefix, f".{f}"))
+                            for f in tree._fields))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_unflatten_like(x, named, _join(prefix, f"[{i}]"))
+                          for i, x in enumerate(tree))
+    if tree is None:
+        return None
     arr = named[prefix]
-    if arr.shape != np.shape(tree):
-        raise ValueError(f"{prefix}: saved shape {arr.shape} != template {np.shape(tree)}")
-    return arr
+    shape = tuple(tree.shape) if isinstance(tree, torch.Tensor) else np.shape(tree)
+    if arr.shape != shape:
+        raise ValueError(f"{prefix}: saved shape {arr.shape} != template {shape}")
+    return _from_host(arr, tree)
 
 
 def config_hash(obj: Any) -> str:
@@ -87,10 +156,11 @@ def config_hash(obj: Any) -> str:
 
 
 def array_checksum(arr: np.ndarray) -> str:
-    """Content hash of one array: dtype + shape + bytes (C-contiguous)."""
+    """Content hash of one array: dtype name (``_dtype_name``) + shape +
+    bytes (C-contiguous)."""
     a = np.ascontiguousarray(arr)
     h = hashlib.sha256()
-    h.update(str(a.dtype).encode())
+    h.update(_dtype_name(a).encode())
     h.update(str(a.shape).encode())
     h.update(a.tobytes())
     return h.hexdigest()[:16]

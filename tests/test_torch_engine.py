@@ -204,7 +204,7 @@ def _imports(path: pathlib.Path):
 
 def test_port_imports_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tools" / "torch_rates.py"]
+        ROOT / "chip_smoke.py", ROOT / "tools" / "torch_rates.py", ROOT / "tools" / "serve_ab.py"]
     assert len(files) > 20
     for f in files:
         for mod in _imports(f):
