@@ -59,6 +59,18 @@ Phases, each of which raises on failure (nothing is caught):
              the embedding's gradient within 1e-4, and 3 steps of the
              arch's optimizer within 1e-4 of the JAX reference's records
              (golden/train_small.json);
+  golden_gnn  the GNN, equivariant and recsys families (models/gnn.py,
+             equivariant.py, bert4rec.py, train/steps.py) for each SMOKE
+             arch in float32 with TF32 off, seed 0's weights drawn on the
+             card: gat-cora on two smoke shapes, graphcast with remat on a
+             sample_khop batch, egnn and mace: the forward within 1e-5 of
+             the largest |output|, the step-0 loss within 1e-5 relative,
+             each leaf's gradient norm within 1e-4 relative and 3 adamw
+             steps' losses within 1e-4 relative of the JAX reference's
+             records (golden/gnn_small.json); bert4rec's cloze mask and
+             negatives bit for bit, its loss, gradient norms and 3 steps
+             likewise, score_candidates of both shapes within 1e-5 of the
+             largest |score|; sample_khop's arrays equal;
   full       the paper's bulk_s1m_r2m shape (r = 2^21 estimators, batch
              s = 2^20, chunk K = 4) through TriangleCountEngine + run_stream on
              a 9,088,608-edge planted-triangle stream: two chunks, then a
@@ -207,6 +219,32 @@ Phases, each of which raises on failure (nothing is caught):
              the plain route; the state resharded onto estimators=4 on this
              card, read back unchanged, and one pjit update equal to the
              same update unsharded;
+  gnn_features  examples/gnn_features.py at its own size
+             (launch/gnn_features.py): a 1,500-vertex Barabasi-Albert
+             stream into 50,000 estimators in batches of 2,048 on the
+             per-batch kernel route (multisearch_counts, the tile sort and
+             segscan each launched, counted from 0 around the run), then 60
+             adamw steps of a GAT on the streamed density: triangles/edge
+             equal to the reference's exactly, the step-0 loss within 1e-5
+             relative, and from the reference's params at steps 0, 20, 40
+             and 59 each step's loss within 1e-5 relative and gradient norms
+             within 1e-4 (free-running trajectories part by chaos, so their
+             losses are recorded, not gated); the loss falls;
+  gnn_full   the families at full width, float32, adamw at 1e-3: gat-cora
+             FULL on full_graph_sm (20 steps, the loss falls), graphcast
+             FULL (16 layers, d 512, remat) on 5 minibatch_lg batches that
+             sample_khop draws from a uniform graph of ogbn-products' size
+             (2,449,029 vertices, 61,859,140 edges; the CSR build and each
+             sample timed on the host), egnn and mace FULL on molecule (20
+             steps each; in float64 the energy within 1e-4 relative under a
+             translation, and for egnn under a rotation too, with the
+             coordinates moved alike; mace's move under a rotation is
+             recorded: ROADMAP C.6), bert4rec FULL (a cloze step at batch
+             4,096, serve_p99, retrieval_cand; a (C,) and a (B, C)
+             candidate set of the same ids within 1e-5 of the largest
+             |score|), all finite; each records ms a step, device busy ms
+             over device operations, peak bytes beyond what was held and
+             the params' bytes. No kernel of csrc/ is on these models;
   kernels    each kernel and its plain version at the main path's full-size
              shapes: equal, and timed with CUDA events beside its bound and,
              where one PyTorch call computes the same function, that call;
@@ -3328,6 +3366,534 @@ def phase_train_elastic(dev, full: dict) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# the GNN, equivariant and recsys families
+# --------------------------------------------------------------------------
+# the sampled shape: 1,024 seeds at fanouts [15, 10] (minibatch_lg), over a
+# graph of ogbn-products' size
+OGB_PRODUCTS = {"vertices": 2_449_029, "edges": 61_859_140}
+MINIBATCH = {"seeds": 1024, "fanouts": [15, 10], "d_feat": 602, "targets": 227}
+# the equivariant models' energy under a rotation plus a translation of the
+# coordinates, in float64 (relative)
+INV_RTOL = 1e-4
+
+
+def gnn_smoke_case(name: str, batch: dict, dev) -> dict:
+    """One SMOKE arch of golden/gnn_small.json as the CPU tests build it
+    (tests/test_torch_gnn.py::arch_case): the port's config, its batch on
+    ``dev`` in the reference's dtypes, and its init, forward, loss and
+    step builder."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import egnn, gat_cora, graphcast, mace
+    from repro_torch.configs.cells import GNN_SMOKE_SHAPES
+    from repro_torch.models import equivariant as eqv
+    from repro_torch.models import gnn
+    from repro_torch.train import steps
+
+    dtypes = {"node_feats": torch.float32, "edge_index": torch.int32, "labels": torch.int32,
+              "label_mask": torch.float32, "targets": torch.float32, "coords": torch.float32,
+              "edge_mask": torch.bool, "energy": torch.float32}
+    b = {k: torch.tensor(v, dtype=dtypes[k], device=dev) for k, v in batch.items()}
+    if name in ("egnn", "mace"):
+        cfg = {"egnn": egnn, "mace": mace}[name].SMOKE
+
+        def fwd(p, b):
+            args = (b["node_feats"], b["coords"], b["edge_index"], b["edge_mask"])
+            if cfg.kind == "egnn":
+                e, x = eqv.egnn_forward(p, cfg, *args)
+                return torch.cat([e.reshape(1), x.reshape(-1)])
+            return eqv.mace_forward(p, cfg, *args).reshape(1)
+
+        return {"cfg": cfg, "batch": b, "init": eqv.init_params, "forward": fwd,
+                "loss": lambda p, b: eqv.energy_loss(p, cfg, b["node_feats"], b["coords"],
+                                                     b["edge_index"], b["edge_mask"],
+                                                     b["energy"]),
+                "step": steps.make_equivariant_train_step}
+    if name == "graphcast":
+        cfg = dataclasses.replace(graphcast.smoke(12, 9), remat=True)
+    else:
+        sh = GNN_SMOKE_SHAPES[name.split(":")[1]]
+        cfg = gat_cora.smoke(sh["d_feat"], sh["n_classes"])
+    if "targets" in b:
+        loss = lambda p, b: gnn.regression_loss(  # noqa: E731
+            p, cfg, b["node_feats"], b["edge_index"], b["targets"])
+    else:
+        loss = lambda p, b: gnn.node_classification_loss(  # noqa: E731
+            p, cfg, b["node_feats"], b["edge_index"], b["labels"], b["label_mask"])
+    return {"cfg": cfg, "batch": b, "init": gnn.init_params,
+            "forward": lambda p, b: gnn.forward(p, cfg, b["node_feats"], b["edge_index"]),
+            "loss": loss, "step": steps.make_gnn_train_step}
+
+
+def flat_tree(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from flat_tree(v, f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def norm_rel_err(grad, norm: float) -> float:
+    """A gradient's norm against the reference's, relative; where the
+    reference's is zero (a leaf the loss does not reach), the norm itself."""
+    import torch
+
+    n = float(torch.linalg.vector_norm(grad.double()))
+    return abs(n - norm) / norm if norm else n
+
+
+def phase_golden_gnn(dev) -> None:
+    """The GNN, equivariant and recsys families against the reference's
+    float32 records (golden/gnn_small.json, written by JAX), seed 0's
+    weights drawn on the card, TF32 off: for gat-cora on two smoke shapes,
+    graphcast (remat on, on a sample_khop batch), egnn and mace, the
+    forward within 1e-5 of the largest |output|, the step-0 loss within
+    1e-5 relative, each leaf's gradient norm within 1e-4, and 3 adamw steps'
+    losses within 1e-4; for bert4rec the cloze mask and negatives bit for
+    bit, the loss, gradient norms and 3 steps likewise, and score_candidates
+    of both shapes within 1e-5 of the largest |score|; sample_khop's arrays
+    equal."""
+    import torch
+
+    from repro_torch import rng
+    from repro_torch.configs import bert4rec as b4r_cfg
+    from repro_torch.data.sampler import CSRGraph, sample_khop
+    from repro_torch.models import bert4rec as b4r
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.steps import (make_recsys_score_step, make_recsys_train_step,
+                                         value_and_grad)
+
+    gold = json.loads((ROOT / "src/repro_torch/golden/gnn_small.json").read_text())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+
+    def check(name, errs):
+        for key, limit in (("forward_err", gold["fwd_tol"]), ("loss_rel_err", gold["loss_rtol"]),
+                           ("grad_norm_rel_err", gold["grad_tol"]),
+                           ("step_loss_rel_err", gold["step_loss_rtol"])):
+            if key in errs and not errs[key] <= limit:
+                raise AssertionError(f"golden_gnn {name}: {key} {errs[key]} > {limit}")
+        out[name] = errs
+
+    def steps_of(step, params, batch, keys):
+        opt = adamw(lr=gold["lr"])
+        state, losses = opt.init(params), []
+        for k in keys:
+            params, state, m = step(params, state, batch, k)
+            losses.append(float(m["loss"]))
+        return losses
+
+    def rel(got, want):
+        return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+    for name, g in gold["archs"].items():
+        c = gnn_smoke_case(name, g["batch"], dev)
+        params = c["init"](rng.PRNGKey(gold["param_seed"], dev), c["cfg"])
+        with torch.no_grad():
+            fwd = c["forward"](params, c["batch"]).cpu().numpy()
+        if not np.isfinite(fwd).all():
+            raise AssertionError(f"golden_gnn {name}: forward not finite")
+        loss, grads = value_and_grad(c["loss"], params, c["batch"])
+        losses = steps_of(c["step"](c["cfg"], adamw(lr=gold["lr"])), params, c["batch"],
+                          [rng.PRNGKey(i, dev) for i in range(gold["steps"])])
+        check(name, {
+            "forward_err": float(np.abs(fwd - np.array(g["forward"])).max()) / g[
+                "max_abs_forward"],
+            "loss_rel_err": abs(float(loss) - g["loss"]) / abs(g["loss"]),
+            "grad_norm_rel_err": max(norm_rel_err(v, g["grad_norms"][k])
+                                     for k, v in flat_tree(grads)),
+            "step_loss_rel_err": rel(losses, g["step_losses"]), "step_losses": losses})
+
+    g = gold["bert4rec"]
+    cfg = b4r_cfg.SMOKE
+    items = torch.tensor(g["items"], dtype=torch.int32, device=dev)
+    params = b4r.init_params(rng.PRNGKey(gold["param_seed"], dev), cfg)
+    key = rng.PRNGKey(g["key_seed"], dev)
+    mask, negs = b4r.cloze_draws(cfg, tuple(items.shape), key, g["n_neg"])
+    np.testing.assert_array_equal(mask.cpu().numpy(), np.array(g["mask"]),
+                                  err_msg="golden_gnn bert4rec cloze mask")
+    np.testing.assert_array_equal(negs.cpu().numpy(), np.array(g["negs"], np.int32),
+                                  err_msg="golden_gnn bert4rec negatives")
+    loss, grads = value_and_grad(lambda p, b: b4r.cloze_loss(p, cfg, b, key, g["n_neg"]),
+                                 params, items)
+    losses = steps_of(make_recsys_train_step(cfg, adamw(lr=gold["lr"])), params,
+                      {"items": items}, [rng.PRNGKey(i, dev) for i in range(gold["steps"])])
+    score = make_recsys_score_step(cfg)
+    score_err = max(
+        float(np.abs(score(params, {"items": items, "candidates": torch.tensor(
+            g[cands], dtype=torch.int32, device=dev)}).cpu().numpy()
+            - np.array(g[want])).max()) / g["max_abs_score"]
+        for cands, want in (("cand1", "scores1"), ("cand2", "scores2")))
+    check("bert4rec", {
+        "cloze_draws_equal": True, "forward_err": score_err,
+        "loss_rel_err": abs(float(loss) - g["loss"]) / abs(g["loss"]),
+        "grad_norm_rel_err": max(norm_rel_err(v, g["grad_norms"][k])
+                                 for k, v in flat_tree(grads)),
+        "step_loss_rel_err": rel(losses, g["step_losses"]), "step_losses": losses})
+
+    s = gold["sampler"]
+    got = sample_khop(CSRGraph(s["graph_nodes"], np.array(s["edges"])), np.array(s["seeds"]),
+                      s["fanouts"], np.random.default_rng(s["rng_seed"]))
+    for name, a, want in (("nodes", got[0], s["nodes"]), ("edge_index", got[1], s["edge_index"]),
+                          ("edge_mask", got[2], s["edge_mask"])):
+        np.testing.assert_array_equal(a, np.array(want, dtype=a.dtype),
+                                      err_msg=f"golden_gnn sample_khop {name}")
+    if got[3] != s["n_real"]:
+        raise AssertionError(f"golden_gnn sample_khop: {got[3]} real nodes, not {s['n_real']}")
+    emit({"phase": "golden_gnn", "archs": out, "sampler_equal": True, "tf32": False, "ok": True})
+
+
+def phase_gnn_features(dev, card: str) -> dict:
+    """examples/gnn_features.py at its own size through
+    ``launch.gnn_features.run``: a 1,500-vertex Barabasi-Albert stream (k = 6)
+    into 50,000 estimators in batches of 2,048 on the per-batch kernel route,
+    then 60 adamw steps of a GAT on the streamed density. The launch counts
+    are set to 0 just before and read just after: multisearch_counts, the
+    tile sort and segscan must each have launched. triangles/edge must equal
+    the reference's exactly, the step-0 loss within 1e-5 relative, and from
+    the reference's params at steps 0, 20, 40 and 59 (golden/gnn_small.json)
+    each step's loss within 1e-5 relative and its gradient norms within 1e-4:
+    free-running, the two trajectories part by chaos, not by a fault (the
+    reference parts from itself as far under a permutation of its edge
+    list; tests/test_torch_gnn.py), so their losses are recorded beside the
+    reference's, not gated. The loss must fall."""
+    import torch
+
+    from repro_torch.data.graph_stream import barabasi_albert_stream
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import gnn_features
+    from repro_torch.models.gnn import node_classification_loss
+    from repro_torch.train.optimizer import tree_map
+    from repro_torch.train.steps import value_and_grad
+
+    gf = json.loads((ROOT / "src/repro_torch/golden/gnn_small.json").read_text())["gnn_features"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a = gf["args"]
+    lines = []
+    reset_launches()
+    run = gnn_features.run(**a, device=dev, echo=lines.append)
+    torch.cuda.synchronize(dev)
+    launches = {k: LAUNCHES[k] for k in ("multisearch_counts", "bitonic_sort_tiles", "segscan")}
+    if not all(launches.values()):
+        raise AssertionError(f"gnn_features: kernels not launched on the stream: {launches}")
+    if run["triangles_per_edge"] != gf["triangles_per_edge"]:
+        raise AssertionError(f"gnn_features: triangles/edge {run['triangles_per_edge']!r} != "
+                             f"JAX {gf['triangles_per_edge']!r}")
+    losses, want = run["losses"], gf["losses"]
+    step0 = abs(losses[0] - want[0]) / want[0]
+    if not (step0 <= gf["loss_rtol"] and all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"gnn_features: losses {losses[0]} .. {losses[-1]} against JAX "
+                             f"{want[0]} .. {want[-1]}")
+    edges = barabasi_albert_stream(n=a["n"], k=a["k"], seed=a["graph_seed"])
+    data = gnn_features.node_task(edges, a["n"], run["triangles_per_edge"], dev)
+    teacher = {}
+    for i, t in gf["teacher"].items():
+        params = tree_map(lambda x: torch.tensor(x, dtype=torch.float32, device=dev),
+                          t["params"])
+        loss, grads = value_and_grad(
+            lambda p, b: node_classification_loss(p, gnn_features.CFG, b["node_feats"],
+                                                  b["edge_index"], b["labels"],
+                                                  b["label_mask"]), params, data)
+        errs = {"loss_rel_err": abs(float(loss) - t["loss"]) / t["loss"],
+                "grad_norm_rel_err": max(norm_rel_err(v, t["grad_norms"][k])
+                                         for k, v in flat_tree(grads))}
+        if errs["loss_rel_err"] > gf["loss_rtol"] or errs["grad_norm_rel_err"] > gf["grad_tol"]:
+            raise AssertionError(f"gnn_features step {i} from the reference's params: {errs}")
+        teacher[i] = errs
+    out = {"card": card, "args": a, "edges": run["edges"],
+           "triangles_per_edge": run["triangles_per_edge"], "launches": launches,
+           "step0_loss_rel_err": step0, "teacher_forced": teacher,
+           "free_running_losses": {i: [losses[i], want[i]] for i in (0, 20, 40, 59)},
+           "free_running_max_rel_dev": max(abs(x - y) / y for x, y in zip(losses, want)),
+           "stream_host_s": run["stream_seconds"], "train_host_s": run["train_seconds"],
+           "ms_per_gat_step": run["train_seconds"] * 1e3 / a["steps"], "lines": lines}
+    emit({"phase": "gnn_features", **out, "ok": True})
+    return out
+
+
+def model_records(one, n_steps: int, params, extra=(), card: str = "") -> dict:
+    """``n_steps`` calls of ``one`` (each returning its loss or output), each
+    timed by CUDA events; the peak bytes those calls allocated beyond what
+    was held before them; one more call's device busy ms over its device
+    operations (``device_busy``, which calls ``one`` twice); the params'
+    bytes (and ``extra``'s, the optimizer state)."""
+    import torch
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms, outs = [], []
+    for _ in range(n_steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        outs.append(one())
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+    peak = torch.cuda.max_memory_allocated()
+    busy = device_busy(one, top=5)
+    steady = sorted(ms[1:] or ms)[len(ms[1:] or ms) // 2]
+    return {"card": card, "ms": ms, "ms_per_step_median_after_first": steady,
+            "step_profile": busy, "device_idle_share": 1.0 - busy["device_busy_ms"] / steady,
+            "peak_bytes_beyond_held": peak - held, "held_bytes": held,
+            "param_bytes": nbytes(*tensors(params)),
+            "opt_state_bytes": nbytes(*(t for e in extra for t in tensors(e)))}, outs
+
+
+def molecule_batch(n_atoms: int, n_edges: int, d: int, seed: int, dev) -> dict:
+    """Molecules of 30 atoms (normal coordinates around a random centre, a
+    1.5 A spread) whose edges join two distinct atoms of one molecule,
+    n_edges / molecules of them each; atom features normal of width d."""
+    import torch
+
+    g = np.random.default_rng(seed)
+    per, n_mol = 30, n_atoms // 30
+    centre = np.repeat(g.normal(scale=20.0, size=(n_mol, 3)), per, axis=0)
+    coords = centre + 1.5 * g.normal(size=(n_atoms, 3))
+    k = n_edges // n_mol
+    base = np.repeat(np.arange(n_mol) * per, k)
+    src = g.integers(0, per, n_mol * k)
+    dst = (src + g.integers(1, per, n_mol * k)) % per  # never src
+    ei = np.stack([base + src, base + dst]).astype(np.int32)
+    return {"node_feats": torch.from_numpy(g.normal(size=(n_atoms, d)).astype(np.float32)).to(dev),
+            "coords": torch.from_numpy(coords.astype(np.float32)).to(dev),
+            "edge_index": torch.from_numpy(ei).to(dev),
+            "edge_mask": torch.ones(ei.shape[1], dtype=torch.bool, device=dev),
+            "energy": torch.tensor(float(g.normal() * n_mol), dtype=torch.float32, device=dev)}
+
+
+def rotation(seed: int) -> np.ndarray:
+    q, r = np.linalg.qr(np.random.default_rng(seed).normal(size=(3, 3)))
+    q = q * np.sign(np.diag(r))
+    if np.linalg.det(q) < 0:
+        q[:, 0] = -q[:, 0]
+    return q
+
+
+def phase_gnn_full(dev, card: str) -> dict:
+    """The GNN, equivariant and recsys families at full width, float32 with
+    TF32 off, adamw at the cells' 1e-3, seed 0's weights and data from seeds.
+    (a) gat-cora FULL on full_graph_sm: 2,708 nodes, 10,556 edges padded to
+    10,752 slots, 1,433 binary bag-of-words features at Cora's 1.27% density,
+    7 classes learnt from the features, 140 labelled nodes: 20 steps, the
+    loss falls. (b) graphcast FULL (16 layers, d 512, remat) on minibatch_lg
+    batches: a uniform random graph at ogbn-products' 2,449,029 vertices and
+    61,859,140 edges (its CSR build timed on the host), 1,024 seeds at
+    fanouts [15, 10] through sample_khop (timed): 169,984 node and 168,960
+    edge slots, 602 features, 227 targets; 5 steps on 5 samples, finite.
+    (c) egnn FULL and mace FULL on molecule: 3,840 atoms in molecules of 30,
+    8,192 edges: 20 steps each, finite; then in float64 (the trained params
+    cast up) the energy under a random rotation plus translation within
+    1e-4 relative and EGNN's coordinates moved with them, and MACE's energy
+    under the translation; MACE's move under the rotation is recorded, not
+    gated (ROADMAP C.6: the reference's MACE-lite is not rotation
+    invariant). (d) bert4rec FULL (1,048,578 x 64 items): one cloze train
+    step at batch 4,096 (cut from 65,536: the (B, 200, 1,024) float32 score
+    tensor alone is 53.6 GB there), serve_p99 (512 users x 1,024 own
+    candidates) and retrieval_cand (1 user x 1,000,448 candidates, the
+    reference's 1,000,000 padded to 1,024s by repeating ids): finite, and a
+    (C,) and a (B, C) candidate set of the same ids score alike. Each
+    records ms a step (CUDA events), device busy ms over device operations,
+    peak bytes beyond what was held and the params' bytes."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import rng
+    from repro_torch.configs import bert4rec as b4r_cfg
+    from repro_torch.configs import egnn, gat_cora, graphcast, mace
+    from repro_torch.configs.cells import GNN_SHAPES, RECSYS_SHAPES
+    from repro_torch.data.sampler import CSRGraph, sample_khop
+    from repro_torch.models import bert4rec as b4r
+    from repro_torch.models import equivariant as eqv
+    from repro_torch.models import gnn
+    from repro_torch.train.optimizer import adamw, tree_map
+    from repro_torch.train.steps import (make_equivariant_train_step, make_gnn_train_step,
+                                         make_recsys_score_step, make_recsys_train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"card": card}
+
+    def train(cfg, make_step, init, batch, n_steps, name):
+        params = init(rng.PRNGKey(0, dev), cfg)
+        opt = adamw(lr=1e-3)
+        st = [params, opt.init(params)]
+        step = make_step(cfg, opt)
+        key = rng.PRNGKey(0, dev)  # the GNN steps ignore it; the cloze step draws from it
+
+        def one():
+            st[0], st[1], m = step(st[0], st[1], batch, key)
+            return m["loss"]
+
+        rec, losses = model_records(one, n_steps, params, (st[1],), card)
+        losses = [float(x) for x in losses]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"gnn_full {name}: losses {losses} not finite")
+        rec["losses"] = losses
+        return rec, st[0]
+
+    # (a) gat-cora on full_graph_sm
+    sh = GNN_SHAPES["full_graph_sm"]
+    N, E, F, C = sh["n_nodes"], sh["n_edges"], sh["d_feat"], sh["n_classes"]
+    slots = -(-E // 1024) * 1024
+    g = np.random.default_rng(0)
+    feats = (g.random((N, F)) < 0.0127).astype(np.float32)
+    labels = np.argmax(feats @ g.normal(size=(F, C)), axis=1).astype(np.int32)
+    ei = np.full((2, slots), N, np.int32)
+    ei[:, :E] = g.integers(0, N, (2, E))
+    mask = np.zeros(N, np.float32)
+    mask[:140] = 1.0
+    batch = {"node_feats": torch.from_numpy(feats).to(dev), "edge_index": torch.from_numpy(ei).to(dev),
+             "labels": torch.from_numpy(labels).to(dev), "label_mask": torch.from_numpy(mask).to(dev)}
+    rec, _ = train(gat_cora.full(F, C), make_gnn_train_step, gnn.init_params, batch, 20,
+                   "gat-cora")
+    if not rec["losses"][-1] < rec["losses"][0]:
+        raise AssertionError(f"gnn_full gat-cora: losses {rec['losses']} do not fall")
+    out["gat-cora"] = {"nodes": N, "edge_slots": slots, "d_feat": F, "classes": C, **rec}
+    del batch
+    torch.cuda.empty_cache()
+
+    # (b) graphcast on minibatch_lg, sampled from a products-sized graph
+    g = np.random.default_rng(1)
+    t0 = time.perf_counter()
+    edges = g.integers(0, OGB_PRODUCTS["vertices"], (OGB_PRODUCTS["edges"], 2))
+    draw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    csr = CSRGraph(OGB_PRODUCTS["vertices"], edges)
+    csr_s = time.perf_counter() - t0
+    del edges
+    samples, sample_s = [], []
+    for i in range(5):
+        t0 = time.perf_counter()
+        seeds = g.choice(OGB_PRODUCTS["vertices"], MINIBATCH["seeds"], replace=False)
+        samples.append(sample_khop(csr, seeds, MINIBATCH["fanouts"], g))
+        sample_s.append(time.perf_counter() - t0)
+    del csr
+    n_slots, e_slots = len(samples[0][0]), samples[0][1].shape[1]
+    if (n_slots, e_slots) != (GNN_SHAPES["minibatch_lg"]["n_nodes"],
+                              GNN_SHAPES["minibatch_lg"]["n_edges"]):
+        raise AssertionError(f"gnn_full: sample_khop gave {n_slots} x {e_slots} slots")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    nf = torch.randn((n_slots, MINIBATCH["d_feat"]), generator=gen, device=dev)
+    tg = torch.randn((n_slots, MINIBATCH["targets"]), generator=gen, device=dev)
+    batches = [{"node_feats": nf, "edge_index": torch.from_numpy(s[1]).to(dev), "targets": tg}
+               for s in samples]
+    cfg = graphcast.full(MINIBATCH["d_feat"], MINIBATCH["targets"])
+    it = iter(batches * 2)
+    params = gnn.init_params(rng.PRNGKey(0, dev), cfg)
+    opt = adamw(lr=1e-3)
+    st = [params, opt.init(params)]
+    step = make_gnn_train_step(cfg, opt)
+
+    def gc_one():
+        st[0], st[1], m = step(st[0], st[1], next(it), None)
+        return m["loss"]
+
+    rec, losses = model_records(gc_one, 5, params, (st[1],), card)
+    rec["losses"] = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in rec["losses"]):
+        raise AssertionError(f"gnn_full graphcast: losses {rec['losses']} not finite")
+    out["graphcast"] = {
+        "graph": OGB_PRODUCTS, "graph_draw_host_s": draw_s, "csr_build_host_s": csr_s,
+        "sample_khop_host_s": sample_s, "real_nodes": [s[3] for s in samples],
+        "real_edges": [int(s[2].sum()) for s in samples], "node_slots": n_slots,
+        "edge_slots": e_slots, "layers": cfg.n_layers, "d_hidden": cfg.d_hidden,
+        "remat": cfg.remat, **rec}
+    del batches, st, params, step, it, nf, tg, samples
+    torch.cuda.empty_cache()
+
+    # (c) egnn and mace on molecule
+    sh = GNN_SHAPES["molecule"]
+    R, t = rotation(5), np.array([0.7, -1.3, 2.1])
+    for name, mod in (("egnn", egnn), ("mace", mace)):
+        cfg = mod.FULL
+        batch = molecule_batch(sh["n_nodes"], sh["n_edges"], cfg.d_hidden, 2, dev)
+        rec, params = train(cfg, make_equivariant_train_step, eqv.init_params, batch, 20, name)
+        c64 = dataclasses.replace(cfg, dtype=torch.float64)
+        p64 = tree_map(lambda x: x.double(), params)
+
+        def energy(coords, c64=c64, p64=p64, batch=batch, name=name):
+            args = (batch["node_feats"].double(), coords, batch["edge_index"],
+                    batch["edge_mask"])
+            with torch.no_grad():
+                if name == "egnn":
+                    return eqv.egnn_forward(p64, c64, *args)
+                return eqv.mace_forward(p64, c64, *args), None
+
+        x = batch["coords"].double()
+        Rt, tt = torch.from_numpy(R).to(dev), torch.from_numpy(t).to(dev)
+        e0, x0 = energy(x)
+        e1, x1 = energy(x @ Rt.T + tt)
+        e2, _ = energy(x + tt)
+        rot = abs(float(e1) - float(e0)) / abs(float(e0))
+        trans = abs(float(e2) - float(e0)) / abs(float(e0))
+        inv = {"float64_translation_rel_change": trans, "float64_rotation_rel_change": rot}
+        if trans > INV_RTOL:
+            raise AssertionError(f"gnn_full {name}: energy moves {trans} under a translation")
+        if name == "egnn":
+            want = x0 @ Rt.T + tt
+            inv["coords_rel_err"] = float((x1 - want).abs().max() / want.abs().max())
+            if rot > INV_RTOL or inv["coords_rel_err"] > INV_RTOL:
+                raise AssertionError(f"gnn_full egnn: not equivariant: {inv}")
+        out[name] = {"atoms": sh["n_nodes"], "edges": sh["n_edges"], **rec, "invariance": inv}
+        del batch, params, p64
+        torch.cuda.empty_cache()
+
+    # (d) bert4rec
+    cfg = b4r_cfg.FULL
+    g = np.random.default_rng(3)
+    B = 4096
+    items = torch.from_numpy(g.integers(1, cfg.n_items, (B, cfg.seq_len)).astype(np.int32)).to(dev)
+    rec, params = train(cfg, make_recsys_train_step, b4r.init_params, {"items": items}, 1,
+                        "bert4rec")
+    out["bert4rec"] = {"train": {"batch": B, "batch_cut_from": RECSYS_SHAPES["train_batch"][
+        "batch"], **rec}}
+    del items
+    torch.cuda.empty_cache()
+    score = make_recsys_score_step(cfg)
+    batches = {}
+    for shape in ("serve_p99", "retrieval_cand"):
+        sh = RECSYS_SHAPES[shape]
+        Bs, Cs = sh["batch"], sh["cands"]
+        users = torch.from_numpy(g.integers(1, cfg.n_items, (Bs, cfg.seq_len)).astype(
+            np.int32)).to(dev)
+        if sh["per_user"]:
+            cands = g.integers(0, cfg.n_items + 2, (Bs, Cs))
+        else:
+            cands = g.integers(0, cfg.n_items + 2, Cs)
+            pad = -(-Cs // 1024) * 1024 - Cs
+            cands = np.concatenate([cands, cands[:pad]])
+        batch = batches[shape] = {"items": users,
+                                  "candidates": torch.from_numpy(cands.astype(np.int32)).to(dev)}
+        rec, scores = model_records(lambda: score(params, batch), 5, params, (), card)
+        s = scores[0]
+        if s.shape != (Bs, batch["candidates"].shape[-1]) or not bool(torch.isfinite(s).all()):
+            raise AssertionError(f"gnn_full bert4rec {shape}: scores {tuple(s.shape)} not finite")
+        out["bert4rec"][shape] = {"users": Bs, "candidates": int(batch["candidates"].shape[-1]),
+                                  **rec}
+        del scores, s
+    # one candidate set as (C,) and as (B, C): serve_p99's users against the
+    # first 1,024 of retrieval_cand's ids, the same scores
+    users = batches["serve_p99"]["items"]
+    shared = batches["retrieval_cand"]["candidates"][:1024]
+    one_d = score(params, {"items": users, "candidates": shared})
+    two_d = score(params, {"items": users, "candidates": shared.expand(users.shape[0], -1)})
+    err = float((one_d - two_d).abs().max() / one_d.abs().max())
+    if err > 1e-5:
+        raise AssertionError(f"gnn_full bert4rec: (C,) and (B, C) candidates differ by {err}")
+    out["bert4rec"]["candidate_shapes_max_rel_err"] = err
+    del params, batches, batch, users, one_d, two_d
+    torch.cuda.empty_cache()
+    emit({"phase": "gnn_full", **out, "ok": True})
+    return out
+
+
 def cli_lines(args) -> list:
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
@@ -3450,6 +4016,7 @@ def main() -> int:
     phase_golden_dynamic(dev)
     phase_golden_serve(dev)
     phase_golden_train(dev)
+    phase_golden_gnn(dev)
     full = phase_full(dev)
     local = phase_local_full(dev, full)
     dynamic = phase_dynamic_full(dev, full)
@@ -3460,6 +4027,8 @@ def main() -> int:
     phase_serve_full(dev, card)
     phase_train_full(dev, card)
     phase_train_elastic(dev, full)
+    phase_gnn_features(dev, card)
+    phase_gnn_full(dev, card)
     rows = phase_kernels(dev, full, local, dynamic)
     rows += bank_kernel_rows(dev, tenants) + plan_rows
     phase_cli()

@@ -54,11 +54,15 @@ def median(x: torch.Tensor) -> torch.Tensor:
 
 def estimate(state: EstimatorState, groups: int = 9) -> torch.Tensor:
     """Median-of-means over all r estimators, a 0-d float64 tensor; (T,)
-    for a bank."""
+    for a bank. A group's mean is its (exact, integer) sum times the
+    float64 reciprocal of its size, as the reference's ``jnp.mean``
+    computes it (XLA folds the division by a constant into that multiply),
+    which differs from a division in the last bit where the size is not a
+    power of two."""
     x = coarse_estimates(state)
     r = x.shape[-1]
     g = effective_groups(r, groups)
-    return median(torch.mean(x.reshape(*x.shape[:-1], g, r // g), dim=-1))
+    return median(torch.sum(x.reshape(*x.shape[:-1], g, r // g), dim=-1) * (1.0 / (r // g)))
 
 
 def partial_group_sums(x_local: torch.Tensor, offset: int, r: int, groups: int) -> torch.Tensor:

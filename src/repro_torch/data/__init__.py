@@ -1,1 +1,2 @@
-"""Edge streams and host-side prefetch (counterpart of ``repro.data``)."""
+"""Edge streams, host-side prefetch, LM token batches and k-hop graph
+sampling (counterpart of ``repro.data``)."""

@@ -14,6 +14,8 @@ for comparison; they need neither framework's arrays, only numpy.
 ``from_jax_params`` carries a transformer's param dict the other way: the
 reference's params as numpy arrays (``jax.device_get``) into the port's
 tensors, so both packages can run one model on the same weights;
+``from_jax_param_tree`` does the same for the nested trees of the GNN,
+equivariant and BERT4Rec families (``layer{i}`` -> ``edge`` -> ``w0``);
 ``from_jax_opt_state`` carries an optimizer's state (``train/optimizer.py``
 keeps the reference's keys), so both can train on from one state.
 """
@@ -128,6 +130,25 @@ def from_jax_params(params_np: dict, cfg, device="cpu") -> dict:
             raise ValueError(f"param {k!r} is {t.dtype}, the config needs {want}")
         out[k] = t.to(device)
     return out
+
+
+def from_jax_param_tree(tree_np: dict, cfg, device="cpu") -> dict:
+    """The reference's nested param tree (dicts of dicts of numpy arrays,
+    as ``jax.device_get`` returns a GNN's, an equivariant model's or
+    BERT4Rec's params) as the same tree of the port's tensors on
+    ``device``: every key kept, every leaf its shape. Every leaf must be
+    in ``cfg.dtype``, the one dtype these configs name."""
+    def conv(tree, path):
+        if isinstance(tree, dict):
+            return {k: conv(v, f"{path}/{k}") for k, v in tree.items()}
+        t = _tensor(tree)
+        if t.dtype != cfg.dtype:
+            raise ValueError(f"param {path!r} is {t.dtype}, the config needs {cfg.dtype}")
+        return t.to(device)
+
+    if not isinstance(tree_np, dict):
+        raise TypeError(f"a param tree is a dict, not {type(tree_np).__name__}")
+    return conv(tree_np, "")
 
 
 def from_jax_opt_state(opt_state_np: dict, params_like: dict) -> dict:

@@ -13,6 +13,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import rng
 
@@ -91,3 +92,9 @@ def softmax_xent(logits: Tensor, labels: Tensor, mask: Optional[Tensor] = None) 
         mask = mask.float()
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(nll)
+
+
+def recompute(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward, not
+    kept (``jax.checkpoint``); nothing in it draws randomness."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)

@@ -47,10 +47,10 @@ from typing import Any, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch import rng
-from repro_torch.models.layers import dense_init, layer_norm, rms_norm, rope, swiglu
+from repro_torch.models.layers import (dense_init, layer_norm, recompute, rms_norm, rope,
+                                       swiglu)
 from repro_torch.primitives.segscan import segment_starts, segmented_iota
 
 Tensor = torch.Tensor
@@ -399,17 +399,11 @@ def forward(params: dict, cfg: TransformerConfig, tokens: Tensor,
     for layer in range(cfg.n_layers):
         lp = _layer_params(params, layer)
         if remat:
-            h, a = _recompute(block, h, lp)
+            h, a = recompute(block, h, lp)
         else:
             h, a = block(h, lp)
         aux = aux + a
     return _norm(h, params["ln_f"], params.get("ln_f_b"), cfg.norm), aux
-
-
-def _recompute(fn, *args):
-    """``fn(*args)`` with its activations recomputed in the backward, not
-    kept (``jax.checkpoint``); nothing in it draws randomness."""
-    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def logits_fn(params: dict, cfg: TransformerConfig, h: Tensor) -> Tensor:
@@ -440,7 +434,7 @@ def lm_loss(params: dict, cfg: TransformerConfig, tokens: Tensor, labels: Tensor
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for lo in range(0, T, min(loss_chunk, T)):
         hc, lc = hf[lo:lo + loss_chunk], lf[lo:lo + loss_chunk]
-        total = total + (_recompute(chunk_nll, hc, lc) if grad else chunk_nll(hc, lc))
+        total = total + (recompute(chunk_nll, hc, lc) if grad else chunk_nll(hc, lc))
     return total / T + aux
 
 

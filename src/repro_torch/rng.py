@@ -158,16 +158,24 @@ def _urem64(x: Tensor, d: Tensor) -> Tensor:
     return torch.where(over >= 0, over, a + b)
 
 
-def randint32(key: Tensor, maxval: Tensor, shape: tuple[int, ...],
-              offset: int = 0) -> Tensor:
-    """``jax.random.randint(key, shape, 0, maxval, int32)`` with a span per
-    lane (``maxval`` broadcasts to ``shape``); int32 result."""
+def randint32(key: Tensor, maxval: Union[int, Tensor], shape: tuple[int, ...],
+              offset: int = 0, minval: Union[int, Tensor] = 0) -> Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, int32)`` with a span
+    per lane (``minval`` and ``maxval`` broadcast to ``shape``): the span is
+    ``maxval - minval``, 1 where that is not positive, and ``minval`` is
+    added to the offset drawn in it; int32 result."""
     k = split(key)
     hi = bits32(k[..., 0, :], shape, offset)
     lo = bits32(k[..., 1, :], shape, offset)
-    maxval = maxval.to(torch.int64)
-    span = torch.where(maxval <= 0, torch.ones_like(maxval), maxval)
-    return span_offset32(hi, lo, span).to(torch.int32)
+    if not isinstance(maxval, Tensor):  # a Python int stays on the host: no upload
+        maxval = torch.full_like(hi, int(maxval))
+    shifted = isinstance(minval, Tensor) or minval != 0  # no extra op on the estimator's path
+    span = maxval.to(torch.int64)
+    if shifted:
+        span = span - (minval.to(torch.int64) if isinstance(minval, Tensor) else int(minval))
+    span = torch.where(span <= 0, torch.ones_like(span), span)
+    off = span_offset32(hi, lo, span)
+    return (off + minval if shifted else off).to(torch.int32)
 
 
 def randint64(key: Tensor, maxval: Tensor, shape: tuple[int, ...],

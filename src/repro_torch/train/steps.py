@@ -1,16 +1,20 @@
 """Step builders (``repro.train.steps``): ``(params, opt_state, batch, key)
--> (params', opt_state', metrics)`` train steps and the serve steps of the
-LM family.
+-> (params', opt_state', metrics)`` train steps for every family, and the
+serve steps of the LM and recsys families.
 
 Gradients come from PyTorch's autograd: ``value_and_grad`` takes the loss
 at fresh leaves that share the params' storage, so the caller's tensors
-never require grad. The GNN, equivariant and recsys step builders wait for
-their models (ROADMAP A.16).
+never require grad; a leaf the loss does not reach gets zeros, as
+``jax.grad`` gives it (BERT4Rec's GELU FFN leaves ``wu`` unread, EGNN's
+last coordinate MLP feeds no energy).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.models import bert4rec as b4r
+from repro_torch.models import equivariant as eqv
+from repro_torch.models import gnn
 from repro_torch.models import transformer as tr
 from repro_torch.train.optimizer import Optimizer, tree_map
 
@@ -23,8 +27,13 @@ def value_and_grad(loss_fn, params, batch):
         leaves = []
         tree_map(leaves.append, live)
         loss = loss_fn(live, batch)
-        grads = iter(torch.autograd.grad(loss, leaves))
-    return loss.detach(), tree_map(lambda _: next(grads), live)
+        grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
+
+    def grad_of(p):
+        g = next(grads)
+        return torch.zeros_like(p) if g is None else g
+
+    return loss.detach(), tree_map(grad_of, live)
 
 
 def _accum_grads(loss_fn, params, batches, accum: int):
@@ -70,5 +79,54 @@ def make_lm_prefill_step(cfg: tr.TransformerConfig):
 def make_lm_decode_step(cfg: tr.TransformerConfig):
     def step(params, cache, batch):
         return tr.decode_step(params, cfg, cache, batch["tokens"])
+
+    return step
+
+
+def make_gnn_train_step(cfg: gnn.GNNConfig, opt: Optimizer):
+    def loss_fn(params, batch):
+        if "targets" in batch:  # regression (graphcast rollout)
+            return gnn.regression_loss(params, cfg, batch["node_feats"], batch["edge_index"],
+                                       batch["targets"])
+        return gnn.node_classification_loss(params, cfg, batch["node_feats"],
+                                            batch["edge_index"], batch["labels"],
+                                            batch["label_mask"])
+
+    def step(params, opt_state, batch, key):
+        loss, grads = value_and_grad(loss_fn, params, batch)
+        new_params, new_opt = opt.update(grads, opt_state, params)
+        return new_params, new_opt, {"loss": loss}
+
+    return step
+
+
+def make_equivariant_train_step(cfg: eqv.EquivariantConfig, opt: Optimizer):
+    def loss_fn(params, batch):
+        return eqv.energy_loss(params, cfg, batch["node_feats"], batch["coords"],
+                               batch["edge_index"], batch["edge_mask"], batch["energy"])
+
+    def step(params, opt_state, batch, key):
+        loss, grads = value_and_grad(loss_fn, params, batch)
+        new_params, new_opt = opt.update(grads, opt_state, params)
+        return new_params, new_opt, {"loss": loss}
+
+    return step
+
+
+def make_recsys_train_step(cfg: b4r.Bert4RecConfig, opt: Optimizer):
+    """The cloze step; its mask and negatives are drawn from ``key``."""
+    def step(params, opt_state, batch, key):
+        loss, grads = value_and_grad(lambda p, b: b4r.cloze_loss(p, cfg, b["items"], key),
+                                     params, batch)
+        new_params, new_opt = opt.update(grads, opt_state, params)
+        return new_params, new_opt, {"loss": loss}
+
+    return step
+
+
+def make_recsys_score_step(cfg: b4r.Bert4RecConfig):
+    @torch.no_grad()
+    def step(params, batch):
+        return b4r.score_candidates(params, cfg, batch["items"], batch["candidates"])
 
     return step
