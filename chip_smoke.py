@@ -245,6 +245,24 @@ Phases, each of which raises on failure (nothing is caught):
              |score|), all finite; each records ms a step, device busy ms
              over device operations, peak bytes beyond what was held and
              the params' bytes. No kernel of csrc/ is on these models;
+  cells      the cell builders (configs/cells.py) and the roofline
+             (roofline/): (a) all 40 FULL cells built as meta tensors with
+             torch.cuda.memory_allocated() unchanged, one line each with its
+             params', optimizer state's and arguments' bytes and model_flops;
+             (b) the reference's 32 smoke cases (tests/test_archs_smoke.py)
+             one step each on the card, arguments from seed 42
+             (roofline.count.materialize): finite, shapes kept, params moved
+             where the step trains; (c) five cells at full width (CELL_RUNS,
+             two of them batch-cut to fit one card): each warmed up by a
+             step that roofline/count.py counts (FlopCounterMode flops, the
+             bytes of every aten op's operands and results, memory), timed
+             over 3 more steps by CUDA events, one more step's device busy
+             time over its operations (the device traced alone; gat-cora's
+             also read from the raw events and from the event list of one
+             profile, which must agree), its roofline terms on
+             the H100's constants and its ms over their lower bound; their
+             records written to build/roofline/ and rendered by
+             roofline.tables.table. No kernel of csrc/ is on these steps;
   kernels    each kernel and its plain version at the main path's full-size
              shapes: equal, and timed with CUDA events beside its bound and,
              where one PyTorch call computes the same function, that call;
@@ -311,16 +329,16 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-# H100 SXM peaks (NVIDIA data sheet), at the full 700 W power limit
-HBM_BYTES_PER_S = 3.35e12
+# H100 SXM peaks (NVIDIA data sheet), at the full 700 W power limit; the HBM
+# rate and the bfloat16 peak are repro_torch.roofline.report's HBM_BW and
+# PEAK_FLOPS, read where they are used (the package is imported only once
+# main() has found the checkout)
 # no integer row in the data sheet: the 32-bit rate outside the tensor cores
 # (67 T/s for float32) is taken for 32-bit integer operations, and an int64
 # comparison or add counts as two of them
 INT32_OPS_PER_S = 67e12
 # FP64 outside the tensor cores (NVIDIA data sheet, H100 SXM)
 FP64_OPS_PER_S = 34e12
-# dense bfloat16 on the tensor cores (NVIDIA data sheet, H100 SXM): MFU's divisor
-BF16_FLOPS_PER_S = 989e12
 FULL = {"r": 2**21, "s": 2**20, "K": 4, "edges": 9_088_608, "triangles": 262_144,
         "vertices": 2**22, "seed": 7, "groups": 9, "pools": 8, "tenants": 4}
 KERNELS = {  # name -> (source, TPU kernel it replaces)
@@ -401,30 +419,76 @@ def device_ms(fn, reps: int = 20, warmup: int = 2) -> float:
                          "longer than the device's spin")
 
 
-def device_busy(fn, top: int = 8) -> dict:
-    """One call of ``fn`` under torch.profiler: the device's busy
-    milliseconds (the sum of its kernels' and memory operations' device
-    time), the count of those operations, and the ``top`` device operations
-    by their summed time (name cut to 90 characters, count, ms). The
-    profiler slows the host, so the call's own time comes from ``time_ms``,
-    not from here."""
+def profiled(fn, host: bool = True):
+    """One call of ``fn`` under torch.profiler, with the host's operations
+    recorded too where ``host`` (the device's own operations are traced
+    either way)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host else [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
+    return prof
+
+
+def device_ops(prof) -> dict:
+    """name -> (count, device us) of the device's operations in a profile,
+    from the profiler's raw events: ``prof.events()`` builds the same
+    events into a tree first, which takes minutes for a step of ~300,000
+    operations (``busy_readings`` holds the two readings together)."""
+    import torch
+
     by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            n, us = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_hidden_event():
+            n, us = by_name.get(e.name(), (0, 0.0))
+            by_name[e.name()] = (n + 1, us + e.duration_ns() / 1e3)
+    return by_name
+
+
+def busy_summary(by_name: dict, top: int) -> dict:
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     return {"device_busy_ms": sum(us for _, us in by_name.values()) / 1e3,
             "device_ops": sum(n for n, _ in by_name.values()),
             "top": [[name[:90], n, us / 1e3] for name, (n, us) in ranked[:top]]}
+
+
+def device_busy(fn, top: int = 8, warmup: bool = True, host: bool = True) -> dict:
+    """One call of ``fn`` under torch.profiler (after one unprofiled call
+    where ``warmup``): the device's busy milliseconds (the sum of its
+    kernels' and memory operations' device time), the count of those
+    operations, and the ``top`` device operations by their summed time
+    (name cut to 90 characters, count, ms). The profiler slows the host, so
+    the call's own time comes from ``time_ms``, not from here."""
+    import torch
+
+    if warmup:
+        fn()
+        torch.cuda.synchronize()
+    return busy_summary(device_ops(profiled(fn, host)), top)
+
+
+def busy_readings(fn) -> dict:
+    """One profile of ``fn`` (``device_busy``'s) read two ways: from the raw
+    events (``device_ops``) and from the profiler's event list
+    (``prof.events()``, each device event's ``time_range``); raises unless
+    they find the same operations and the same busy time to 1 us."""
+    import torch
+
+    prof = profiled(fn)
+    raw = busy_summary(device_ops(prof), 0)
+    listed: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n, us = listed.get(e.name, (0, 0.0))
+            listed[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    tree = busy_summary(listed, 0)
+    if (raw["device_ops"] != tree["device_ops"]
+            or abs(raw["device_busy_ms"] - tree["device_busy_ms"]) > 1e-3):
+        raise AssertionError(f"busy_readings: raw events {raw} != event list {tree}")
+    return {"raw_events": raw, "event_list": tree}
 
 
 def stage_ms(run, reps: int = 5, warmup: int = 1) -> dict:
@@ -620,7 +684,9 @@ def build_splits(state, Ws, nv, W_tail, n_tail, key) -> dict:
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float = INT32_OPS_PER_S) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    from repro_torch.roofline.report import HBM_BW
+
+    t_bytes = nbytes / HBM_BW * 1e3
     t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -3134,8 +3200,10 @@ def train_records(run: dict, card: str) -> dict:
     operations (torch.profiler), the step's peak bytes beyond what was
     held before it, the params' and the optimizer state's bytes, and MFU =
     6 N tokens / (step s x 989e12), N the params a token meets (the active
-    params of an MoE)."""
+    params of an MoE), 989e12 being ``roofline.report.PEAK_FLOPS``."""
     import torch
+
+    from repro_torch.roofline.report import PEAK_FLOPS
 
     cfg, dev = run["cfg"], run["device"]
     data = run["batches"]()
@@ -3161,7 +3229,7 @@ def train_records(run: dict, card: str) -> dict:
             "step_peak_bytes_beyond_held": peak - held, "held_bytes": held,
             "param_bytes": nbytes(*tensors(state[0][0])),
             "opt_state_bytes": nbytes(*tensors(state[0][1])), "params_per_token": n,
-            "mfu": 6 * n * tokens / (ms / 1e3 * BF16_FLOPS_PER_S)}
+            "mfu": 6 * n * tokens / (ms / 1e3 * PEAK_FLOPS)}
 
 
 def tensors(tree):
@@ -3894,6 +3962,182 @@ def phase_gnn_full(dev, card: str) -> dict:
     return out
 
 
+# phase cells (c): (arch, shape, the batch run on one card or None for the
+# cell's own). smollm-135m train_4k at seq 4,096 runs 8 of its 256
+# sequences: with remat, one layer's recomputed attention keeps its float32
+# scores, probabilities and masks for all 8 x 8 chunk pairs for the backward
+# (about 2.3 GB a sequence), so 16 is about the most that fits in 80 GB, and
+# a step at 8 already takes seconds (~300,000 aten operations, ~13 TB of
+# operand traffic). decode_32k runs 64 of its 128 sequences: the bfloat16
+# KV cache of 128 is 96.6 GB.
+CELL_RUNS = (
+    ("smollm-135m", "train_4k", 8),
+    ("smollm-135m", "decode_32k", 64),
+    ("gat-cora", "full_graph_sm", None),
+    ("egnn", "molecule", None),
+    ("bert4rec", "serve_p99", None),
+)
+
+
+def tree_nbytes(tree) -> int:
+    """The bytes of a tree's tensors (from their shapes: meta tensors too)."""
+    return nbytes(*tensors(tree)) if isinstance(tree, dict) else nbytes(tree)
+
+
+def smoke_step(cell, args) -> dict:
+    """One step of a materialised cell, checked as the reference's smoke
+    tests check theirs: a finite loss and params of the same shapes that
+    moved (train), finite logits with (B, 1, V) rows and the cache kept
+    (decode), finite (B, S_or_1, V) logits (prefill), finite (B, C) scores."""
+    import torch
+
+    def finite(ts):
+        return all(bool(torch.isfinite(t.float()).all()) for t in ts if t.is_floating_point())
+
+    name = f"cells (b) {cell.arch} {cell.shape}"
+    out = cell.fn(*args)
+    if cell.kind == "train":
+        params, opt_state, metrics = out
+        loss = float(metrics["loss"])
+        before, after = list(tensors(args[0])), list(tensors(params))
+        if [t.shape for t in before] != [t.shape for t in after]:
+            raise AssertionError(f"{name}: the step changed the params' shapes")
+        moved = max(float((a.float() - b.float()).abs().max()) for a, b in zip(before, after))
+        if not (math.isfinite(loss) and finite(after) and finite(tensors(opt_state)) and moved > 0):
+            raise AssertionError(f"{name}: loss {loss}, params moved by {moved}")
+        return {"loss": loss, "max_param_move": moved}
+    if cell.kind == "decode":
+        logits, cache = out
+        if (logits.shape[0] != args[2]["tokens"].shape[0] or not finite([logits])
+                or cache["k"].shape != args[1]["k"].shape):
+            raise AssertionError(f"{name}: logits {tuple(logits.shape)} or cache wrong")
+        return {"logits": list(logits.shape)}
+    if out.dim() != (3 if cell.kind == "prefill" else 2) or not finite([out]):
+        raise AssertionError(f"{name}: output {tuple(out.shape)} not finite or misshaped")
+    if cell.kind == "score" and tuple(out.shape) != (args[1]["items"].shape[0],
+                                                     args[1]["candidates"].shape[-1]):
+        raise AssertionError(f"{name}: scores {tuple(out.shape)}")
+    return {"out": list(out.shape)}
+
+
+def cell_steps(cell, args, n: int) -> tuple[list, list]:
+    """``n`` steps of a materialised cell, each on the state the last left
+    (a train step's params and optimizer state, a decode step's cache),
+    each timed by CUDA events; returns the ms and the last arguments."""
+    import torch
+
+    st, ms = list(args), []
+    for _ in range(n):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = cell.fn(*st)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+        if cell.kind == "train":
+            st[0], st[1] = out[0], out[1]
+        elif cell.kind == "decode":
+            st[1] = out[1]
+        del out
+    return ms, st
+
+
+def phase_cells(dev, card: str) -> dict:
+    """The cell builders and the roofline on the card (module docstring,
+    phase cells). Float32 cells run with TF32 off, as in phase gnn_full; the
+    roofline's compute term takes the bfloat16 peak for every cell
+    (``roofline.report``), so for them it is a loose floor."""
+    import torch
+
+    from repro_torch.configs import cells
+    from repro_torch.roofline import count, tables
+    from repro_torch.roofline.report import roofline_terms
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"card": card}
+
+    # (a) every FULL cell, abstract: nothing allocated on the card
+    torch.cuda.synchronize(dev)
+    held = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    built = [cells.build_cell(a, s) for a, s in cells.all_cells()]
+    seconds = time.perf_counter() - t0
+    if torch.cuda.memory_allocated(dev) != held:
+        raise AssertionError("cells (a): building the cells allocated on the card")
+    for c in built:
+        if not all(t.is_meta for a in c.args for t in (tensors(a) if isinstance(a, dict) else [a])):
+            raise AssertionError(f"cells (a) {c.arch} {c.shape}: an argument is not on meta")
+        emit({"phase": "cells", "part": "a", "cell": f"{c.arch} {c.shape}", "kind": c.kind,
+              "param_bytes": tree_nbytes(c.args[0]),
+              "opt_state_bytes": tree_nbytes(c.args[1]) if c.kind == "train" else 0,
+              "arg_bytes": sum(tree_nbytes(a) for a in c.args), "model_flops": c.model_flops})
+    out["a"] = {"cells": len(built), "seconds": seconds, "allocated_before": held,
+                "allocated_after": torch.cuda.memory_allocated(dev)}
+    del built
+
+    # (b) the reference's smoke cases, one step each
+    t0 = time.perf_counter()
+    smoke = {}
+    for a, s in cells.SMOKE_CASES:
+        cell = cells.build_cell(a, s, smoke=True)
+        smoke[f"{a} {s}"] = smoke_step(cell, count.materialize(cell, dev, seed=42))
+    torch.cuda.synchronize(dev)
+    out["b"] = {"cases": len(smoke), "seconds": time.perf_counter() - t0, "steps": smoke}
+
+    # (c) five cells at full width, timed and counted into a one-card roofline
+    emit({"phase": "cells", "part": "c", "cuts": {
+        f"{a} {s}": {"batch": b, "cut_from": cells.LM_SHAPES[s]["batch"]}
+        for a, s, b in CELL_RUNS if b is not None}})
+    rec_dir = ROOT / "build" / "roofline"
+    rec_dir.mkdir(parents=True, exist_ok=True)
+    records, runs = [], {}
+    for arch, shape, batch in CELL_RUNS:
+        cell = cells.build_cell(arch, shape)
+        t0 = time.perf_counter()
+        args = count.materialize(cell, dev, seed=0, batch=batch)
+        torch.cuda.synchronize(dev)
+        setup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec = count.record(cell, args)  # the warm-up step, counted
+        count_s = time.perf_counter() - t0
+        ms, st = cell_steps(cell, args, 3)
+        del args
+        t0 = time.perf_counter()
+        busy = device_busy(lambda: cell.fn(*st), top=5, warmup=False, host=False)
+        busy_s = time.perf_counter() - t0
+        # a small step: device_busy's raw-event reading beside the event
+        # list's, on one profile taken as the earlier phases take theirs
+        readings = busy_readings(lambda: cell.fn(*st)) if arch == "gat-cora" else None
+        t = roofline_terms(rec)
+        steady = sorted(ms)[1]
+        analytic = rec["cost"]["flops_analytic_total"]
+        run = {"batch": batch, "setup_s": setup_s, "profile_s": busy_s, "count_s": count_s,
+               "ms": ms, "ms_median": steady,
+               "step_profile": busy, "device_idle_share": 1.0 - busy["device_busy_ms"] / steady,
+               "busy_readings": readings,
+               "terms": {k: t[k] for k in ("compute_s", "memory_s", "collective_s", "bound",
+                                           "step_s_lower_bound", "useful_flop_ratio",
+                                           "roofline_fraction")},
+               "ms_over_bound": steady / (t["step_s_lower_bound"] * 1e3),
+               "counted_over_analytic_flops": rec["cost"]["flops"] / analytic if analytic else None}
+        if not (math.isfinite(steady) and rec["cost"]["flops"] > 0 and rec["cost"]["bytes_accessed"] > 0):
+            raise AssertionError(f"cells (c) {arch} {shape}: {run}")
+        (rec_dir / f"{arch}__{shape}__card.json").write_text(json.dumps(rec, indent=1))
+        emit({"phase": "cells", "part": "c", "cell": f"{arch} {shape}", "card": card,
+              "record": rec, **run})
+        records.append(rec)
+        runs[f"{arch} {shape}"] = run
+        del st
+        torch.cuda.empty_cache()
+    table = tables.table(records)
+    print(table, flush=True)
+    out["c"] = {"runs": runs, "table": table}
+    emit({"phase": "cells", "a": out["a"], "b_cases": out["b"]["cases"],
+          "b_seconds": out["b"]["seconds"], "ok": True})
+    return out
+
+
 def cli_lines(args) -> list:
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
@@ -4029,6 +4273,7 @@ def main() -> int:
     phase_train_elastic(dev, full)
     phase_gnn_features(dev, card)
     phase_gnn_full(dev, card)
+    phase_cells(dev, card)
     rows = phase_kernels(dev, full, local, dynamic)
     rows += bank_kernel_rows(dev, tenants) + plan_rows
     phase_cli()

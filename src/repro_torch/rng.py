@@ -15,6 +15,12 @@ int64 and is masked back to 32 bits after every add, so the same code runs on
 CPU and CUDA tensors (PyTorch has no general uint32/uint64 arithmetic).
 uint64 draws are carried as the int64 with the same bits; the unsigned
 remainder that ``randint`` needs is emulated by ``_urem64``.
+
+A key on the ``meta`` device draws shapes only: every draw returns an empty
+``meta`` tensor of the draw's shape and dtype and runs no threefry (the
+counterpart of ``jax.eval_shape``), so ``init_params(meta_key, cfg)`` is a
+walk over the params' shapes that allocates nothing. Draws on a real device
+are untouched by it.
 """
 from __future__ import annotations
 
@@ -47,6 +53,12 @@ def threefry2x32(k1, k2, x0, x1) -> tuple[Tensor, Tensor]:
     return x0, x1
 
 
+def _shape_only(key: Tensor, shape, dtype) -> Tensor:
+    """The result of a draw from a ``meta`` key: empty, on ``meta``, with the
+    key's leading axes and then ``shape``."""
+    return torch.empty(tuple(key.shape[:-1]) + tuple(shape), dtype=dtype, device="meta")
+
+
 def PRNGKey(seed: int, device: Union[str, torch.device] = "cpu") -> Tensor:
     """``jax.random.PRNGKey(seed)``: the 64-bit seed's (hi, lo) words."""
     s = int(seed) & 0xFFFFFFFFFFFFFFFF
@@ -57,6 +69,9 @@ def fold_in(key: Tensor, data: Union[int, Tensor]) -> Tensor:
     """``jax.random.fold_in``: ``data`` is taken mod 2**32, like jax's
     uint32 cast. A tensor ``data`` of shape (n,) folds n counters into one
     key, giving (n, 2) keys (the reference's ``vmap(fold_in)``)."""
+    if key.is_meta:
+        n = tuple(data.shape) if isinstance(data, Tensor) else ()
+        return _shape_only(key, n + (2,), torch.int64)
     if isinstance(data, Tensor):
         d = data.to(device=key.device, dtype=torch.int64) & M32
         k = key.unsqueeze(-2) if d.dim() else key
@@ -69,6 +84,8 @@ def fold_in(key: Tensor, data: Union[int, Tensor]) -> Tensor:
 
 def split(key: Tensor, num: int = 2) -> Tensor:
     """``jax.random.split`` (partitionable): (..., 2) -> (..., num, 2)."""
+    if key.is_meta:
+        return _shape_only(key, (num, 2), torch.int64)
     lo = torch.arange(num, dtype=torch.int64, device=key.device)
     y0, y1 = threefry2x32(
         key[..., 0, None], key[..., 1, None], torch.zeros_like(lo), lo
@@ -81,6 +98,9 @@ def _block(key: Tensor, shape: tuple[int, ...], offset: int = 0) -> tuple[Tensor
     shape's size): elements ``offset ..`` of a longer draw from the same key,
     so a shard holding estimators ``[o, o + r_local)`` draws its slice of
     the full-r draw with ``offset=o``."""
+    if key.is_meta:
+        y = _shape_only(key, shape, torch.int64)
+        return y, y
     n = 1
     for d in shape:
         n *= int(d)
@@ -116,6 +136,8 @@ def uniform(key: Tensor, shape: tuple[int, ...], offset: int = 0,
     rounded once to float32, which is that FMA wherever the float64 sum is
     exact, as it is for the initialisers' range ``-maxval .. maxval`` (u
     has 23 bits after the point, the span 24 significant bits)."""
+    if key.is_meta:
+        return _shape_only(key, shape, torch.float32)
     b = (bits32(key, shape, offset) >> 9) | 0x3F800000
     u = b.to(torch.int32).view(torch.float32) - 1.0
     if minval is None:
@@ -164,6 +186,8 @@ def randint32(key: Tensor, maxval: Union[int, Tensor], shape: tuple[int, ...],
     per lane (``minval`` and ``maxval`` broadcast to ``shape``): the span is
     ``maxval - minval``, 1 where that is not positive, and ``minval`` is
     added to the offset drawn in it; int32 result."""
+    if key.is_meta:
+        return _shape_only(key, shape, torch.int32)
     k = split(key)
     hi = bits32(k[..., 0, :], shape, offset)
     lo = bits32(k[..., 1, :], shape, offset)
