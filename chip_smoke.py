@@ -263,13 +263,25 @@ Phases, each of which raises on failure (nothing is caught):
              the H100's constants and its ms over their lower bound; their
              records written to build/roofline/ and rendered by
              roofline.tables.table. No kernel of csrc/ is on these steps;
+  dryrun     python -m repro_torch.launch.dryrun on the card's host with no
+             GPU visible to it, five runs at once: gat-cora molecule on the
+             pod (256 ranks) and multipod (512) meshes, bert4rec serve_p99,
+             and the stream shapes bulk_s1m_r2m (coordinated_xla) and
+             coord_s1m_r2m (shardmap) on pod; each record ok, with its mesh's
+             chips, positive model flops, bytes and argument bytes, positive
+             counted flops on a model cell, wire bytes exactly where a plan's
+             calls or a rule gave a collective, and each stream plan's own
+             calls (pjit's one all_gather; shardmap's 14 all_to_alls and one
+             psum); the pod records rendered by python -m
+             repro_torch.roofline.tables. No kernel of csrc/ is on this path;
   kernels    each kernel and its plain version at the main path's full-size
              shapes: equal, and timed with CUDA events beside its bound and,
              where one PyTorch call computes the same function, that call;
              the tile sort at both of its shapes (arc and edge tiles),
              multisearch at all three (Q1, Q2, step 3), and in a row of its
              own at the deletion shape (3r queries into the 2^20 keys of
-             the tail's expiry batch), and segscan at all
+             the tail's expiry batch; its membership le > lt also equal to
+             kernels.ref.delete_hits_ref), and segscan at all
              three (sum over K x 2s and over 2s, max over K x s, each beside
              an unsegmented torch.cumsum); segment_sum beside index_add_ on
              pre-filtered rows and over every row; for every kernel and
@@ -2739,6 +2751,7 @@ def phase_kernels(dev, full: dict, local: dict, dynamic: dict) -> list:
     from repro_torch.kernels.bitonic import bitonic_sort_tiles, bitonic_sort_tiles_plain
     from repro_torch.kernels.fused_ingest import fused_ingest, fused_ingest_plain
     from repro_torch.kernels.multisearch import multisearch_counts, multisearch_counts_plain
+    from repro_torch.kernels.ref import delete_hits_ref
     from repro_torch.kernels.segment_sum import segment_sum, segment_sum_plain
     from repro_torch.kernels.segscan import (
         segmented_max_scan,
@@ -2925,6 +2938,8 @@ def phase_kernels(dev, full: dict, local: dict, dynamic: dict) -> list:
     got, want = multisearch_counts(dk, dq), multisearch_counts_plain(dk, dq)
     for side, a, b in zip(("lt", "le"), got, want):
         require_equal(f"multisearch deletion {side}", a, b)
+    # the probe's membership (le > lt) against the deletion oracle
+    require_equal("multisearch deletion hits", got[1] > got[0], delete_hits_ref(dk, dq))
     depth = math.ceil(math.log2(dk.numel() + 1))
     row("multisearch_counts", max(max_abs(a, b) for a, b in zip(got, want)),
         time_ms(lambda: multisearch_counts(dk, dq), reps=20),
@@ -4138,6 +4153,78 @@ def phase_cells(dev, card: str) -> dict:
     return out
 
 
+# the dry run's cells on the card's host: (arch, shape, multipod)
+DRYRUN_CELLS = (("gat-cora", "molecule", False), ("gat-cora", "molecule", True),
+                ("bert4rec", "serve_p99", False), ("triangle-stream", "bulk_s1m_r2m", False),
+                ("triangle-stream", "coord_s1m_r2m", False))
+# the collectives a stream plan calls on the pod mesh: make_pjit_update's
+# all_gather of the batch, make_coordinated_update's 14 all_to_alls and
+# its overflow's psum
+DRYRUN_STREAM_COUNTS = {"bulk_s1m_r2m": {"all-gather": 1},
+                        "coord_s1m_r2m": {"all-to-all": 14, "all-reduce": 1}}
+
+
+def phase_dryrun(card: str) -> dict:
+    """The dry run (module docstring, phase dryrun): each cell of
+    DRYRUN_CELLS through ``python -m repro_torch.launch.dryrun``, all at once,
+    with no GPU visible to them; each record checked, then the pod records
+    rendered by ``python -m repro_torch.roofline.tables``."""
+    out_dir = ROOT / "build" / "dryrun"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for arch, shape, mp in DRYRUN_CELLS:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                   "--shape", shape, "--out-dir", str(out_dir)] + (["--multipod"] if mp else [])
+            procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                          stderr=subprocess.PIPE, text=True))
+        done = [p.communicate(timeout=400) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    cells_out = []
+    for (arch, shape, mp), p, (_, err) in zip(DRYRUN_CELLS, procs, done):
+        mesh = "multipod" if mp else "pod"
+        if p.returncode != 0:
+            raise AssertionError(f"dryrun {arch} {shape} {mesh}: exit {p.returncode}\n{err[-3000:]}")
+        rec = json.loads((out_dir / f"{arch}__{shape}__{mesh}.json").read_text())
+        coll = rec["collectives"]
+        stream = arch == "triangle-stream"
+        ok = (rec["ok"] and rec["chips"] == (512 if mp else 256) and rec["mesh"] == mesh
+              and rec["model_flops"] > 0 and rec["cost"]["bytes_accessed"] > 0
+              and rec["memory"]["argument_bytes"] > 0 and rec["hlo_size"] > 0
+              and (stream or rec["cost"]["flops"] > 0)
+              # positive wire bytes wherever a plan's calls or a rule gave a collective
+              and (coll["wire_bytes_total"] > 0) == bool(coll["counts"])
+              and (not stream or coll["counts"] == DRYRUN_STREAM_COUNTS[shape])
+              and (stream or bool(coll["rules"]) == bool(coll["counts"])))
+        if not ok:
+            raise AssertionError(f"dryrun {arch} {shape} {mesh}: {rec}")
+        cells_out.append({"cell": f"{arch} {shape} {mesh}",
+                          "seconds_to_compile": rec["seconds_to_compile"],
+                          "hlo_size": rec["hlo_size"], "flops": rec["cost"]["flops"],
+                          "bytes_accessed": rec["cost"]["bytes_accessed"],
+                          "argument_bytes": rec["memory"]["argument_bytes"],
+                          "collectives": coll})
+    table = subprocess.run(
+        [sys.executable, "-m", "repro_torch.roofline.tables", "--dir", str(out_dir), "--mesh",
+         "pod"], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+        check=True).stdout
+    print(table, flush=True)
+    rows = [[c.strip() for c in ln.strip("|").split("|")][:2] for ln in table.splitlines()[2:]]
+    want = sorted([a, s] for a, s, mp in DRYRUN_CELLS if not mp)
+    if sorted(rows) != want:
+        raise AssertionError(f"dryrun: the table's rows {rows} are not the pod cells {want}")
+    emit({"phase": "dryrun", "card": card, "seconds": wall, "cells": cells_out, "ok": True})
+    return {"seconds": wall, "cells": cells_out, "table": table}
+
+
 def cli_lines(args) -> list:
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
@@ -4274,6 +4361,7 @@ def main() -> int:
     phase_gnn_features(dev, card)
     phase_gnn_full(dev, card)
     phase_cells(dev, card)
+    phase_dryrun(card)
     rows = phase_kernels(dev, full, local, dynamic)
     rows += bank_kernel_rows(dev, tenants) + plan_rows
     phase_cli()

@@ -20,6 +20,18 @@ def fused_ingest_ref(state, Ws, n_valids, key, step0=0):
     return _bulk_update_chunk_scan(state, Ws, n_valids, key, step0, "eager")
 
 
+def delete_hits_ref(sorted_delete_keys, queries):
+    """Membership of canonical edge ``queries`` in a sorted batch of
+    deletion keys, the contract of the turnstile delete probe: ``le > lt``
+    of the two searchsorted points. INT64 max padding never matches a real
+    key (real keys pack non-negative vertex ids)."""
+    import torch
+
+    lt = torch.searchsorted(sorted_delete_keys, queries, side="left")
+    le = torch.searchsorted(sorted_delete_keys, queries, side="right")
+    return le > lt
+
+
 def moe_dispatch_ref(expert_idx, capacity: int, n_experts: int):
     """(slot, keep): the slot of each token within its expert's capacity
     buckets, the MoE layer's routing contract. ``slot`` is the token's rank
@@ -33,6 +45,6 @@ def moe_dispatch_ref(expert_idx, capacity: int, n_experts: int):
     return slot.to(torch.int32), slot < capacity
 
 
-__all__ = ["bitonic_sort_tiles_ref", "fused_ingest_ref", "moe_dispatch_ref",
+__all__ = ["bitonic_sort_tiles_ref", "delete_hits_ref", "fused_ingest_ref", "moe_dispatch_ref",
            "multisearch_counts_ref", "segment_sum_ref", "segmented_max_scan_ref",
            "segscan_ref"]

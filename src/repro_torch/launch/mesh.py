@@ -16,7 +16,8 @@ naming the flag, where the machine has fewer; ``host_devices=N`` (the CLI's
 the CPU in tests or ``cuda:0`` on one card, as the reference's flag forces N
 CPU host devices (``repro/launch/_env.py``). A mesh of M shards takes the
 first M of them, and M above N raises the reference's error. No shard moves
-to the CPU unless the caller asked for the CPU.
+to the CPU unless the caller asked for the CPU. The dry run's
+``make_production_mesh`` alone puts its shards on ``meta``.
 """
 from __future__ import annotations
 
@@ -142,6 +143,16 @@ def make_stream_mesh(spec: str, device: DeviceLike = "cuda", host_devices: int =
         return None
     names, sizes = _parse(spec)
     return Mesh(sizes, names, mesh_devices(math.prod(sizes), sizes, device, host_devices))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The dry run's mesh: 16 x 16 = 256 shards as ("data", "model"), or
+    with ``multi_pod`` 2 x 16 x 16 = 512 as ("pod", "data", "model"), every
+    shard on the ``meta`` device, so a step or a plan over it runs on
+    shapes only and allocates nothing (``launch/dryrun.py``)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh(shape, axes, [torch.device("meta")] * math.prod(shape))
 
 
 def make_test_mesh(shape=(2, 4), axes=("data", "model"), device: DeviceLike = "cpu",

@@ -34,6 +34,10 @@ too large for one card) scales ``model_flops`` and the analytic flops by
 ``batch_scale``, the batch that ran over the cell's: every LM and recsys
 formula is linear in the batch. ``python -m repro_torch.roofline.tables``
 renders a directory of such records.
+
+``count_step`` runs the two counters around one call; the dry run
+(``launch/dryrun.py``) uses it on a cell's ``meta`` arguments. ``record``
+refuses ``meta`` arguments (see its docstring).
 """
 from __future__ import annotations
 
@@ -139,20 +143,35 @@ def batch_scale(cell: cells.Cell, args) -> float:
     return 1.0
 
 
+def count_step(fn, args) -> tuple:
+    """Run ``fn(*args)`` once under both counters: (its outputs, the flops
+    of ``FlopCounterMode``, the bytes and the data-moving aten ops of
+    ``ByteCounter``). On ``meta`` arguments this is a shape-only trace
+    (``launch/dryrun.py``)."""
+    with FlopCounterMode(display=False) as flops, ByteCounter() as moved:
+        out = fn(*args)
+    return out, float(flops.get_total_flops()), float(moved.bytes), moved.ops
+
+
 def record(cell: cells.Cell, args, smoke: bool = False) -> dict:
     """Run ``cell.fn(*args)`` once, counted, and return its record (module
     docstring). ``args`` are tensors on one device, shaped as
     ``cell.args`` (the batch may be cut); ``smoke`` says the cell was built
-    with ``smoke=True``."""
+    with ``smoke=True``. ``meta`` arguments are refused: every ``meta``
+    storage's ``data_ptr`` is 0, so the memory fields, which tell storages
+    apart by it, would fold every argument into one; the dry run
+    (``launch/dryrun.py``) records a ``meta`` step."""
     dev = next(iter(_leaves(args))).device
+    if dev.type == "meta":
+        raise ValueError("count.record runs a step on a device; meta arguments have no "
+                         "storage to measure (use repro_torch.launch.dryrun)")
     on_cuda = dev.type == "cuda"
     arg_ptrs = {t.untyped_storage().data_ptr() for t in _leaves(args)}
     if on_cuda:
         torch.cuda.synchronize(dev)
         held = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-    with FlopCounterMode(display=False) as flops, ByteCounter() as moved:
-        out = cell.fn(*args)
+    out, flops, moved, ops = count_step(cell.fn, args)
     if on_cuda:
         torch.cuda.synchronize(dev)
         peak = torch.cuda.max_memory_allocated(dev) - held
@@ -177,10 +196,10 @@ def record(cell: cells.Cell, args, smoke: bool = False) -> dict:
             "alias_bytes": _storage_bytes(aliased),
         },
         "cost": {
-            "flops": float(flops.get_total_flops()),
-            "bytes_accessed": float(moved.bytes),
+            "flops": flops,
+            "bytes_accessed": moved,
             "flops_analytic_total": None if analytic is None else analytic * scale,
-            "aten_ops": moved.ops,
+            "aten_ops": ops,
         },
         "collectives": {"counts": {}, "out_bytes": {}, "wire_bytes": {},
                         "wire_bytes_total": 0.0},

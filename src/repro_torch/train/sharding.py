@@ -13,8 +13,12 @@ A spec is the port's own ``P``: a tuple with one entry per dimension, each
 ``None``, a mesh axis name or a tuple of names; ``P()`` is replicated. The
 one-process meshes of ``launch/mesh.py`` read specs in this form
 (``train/elastic.py``), and the cells (``configs/cells.py``) carry them.
+``local_shape``, ``local_bytes`` and ``spec_leaves`` read a tree of specs
+against its tensors, as the dry run does (``launch/dryrun.py``).
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.models.transformer import TransformerConfig
 from repro_torch.train.optimizer import tree_map
@@ -113,3 +117,49 @@ def opt_state_specs(opt_name: str, param_specs) -> dict:
 def replicated_like(tree):
     """``P()`` for every leaf of a dict tree (tensors or specs)."""
     return tree_map(lambda _: P(), tree)
+
+
+def spec_axes(spec) -> tuple:
+    """The mesh axes a spec shards over, in the order its entries name them."""
+    out = []
+    for e in spec:
+        out += [e] if isinstance(e, str) else list(e or ())
+    return tuple(out)
+
+
+def local_shape(shape, spec, mesh_shape: dict) -> tuple:
+    """One shard's block of a ``shape`` laid out by ``spec`` over a mesh of
+    ``mesh_shape`` (axis name -> size): each sharded dimension ceil-divided
+    by the product of its axes' sizes, as jax lays a dimension out; the
+    dimensions past the spec's entries are whole."""
+    out = list(shape)
+    for i, e in enumerate(spec):
+        if e is not None:
+            k = 1
+            for a in ([e] if isinstance(e, str) else e):
+                k *= mesh_shape[a]
+            out[i] = -(-out[i] // k)
+    return tuple(out)
+
+
+def local_bytes(t, spec, mesh_shape: dict) -> int:
+    """The bytes of one shard's block of tensor ``t`` (``local_shape``)."""
+    n = 1
+    for d in local_shape(t.shape, spec, mesh_shape):
+        n *= d
+    return n * t.element_size()
+
+
+def spec_leaves(tree, specs):
+    """(tensor, spec) for every tensor leaf of ``tree`` with the spec tree
+    that lays it out: dicts matched by key, tuples and lists by position."""
+    if isinstance(tree, torch.Tensor):
+        yield tree, specs
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from spec_leaves(v, specs[k])
+    elif isinstance(tree, (list, tuple)):
+        if len(tree) != len(specs):
+            raise ValueError(f"a tree of {len(tree)} entries against {len(specs)} specs")
+        for v, s in zip(tree, specs):
+            yield from spec_leaves(v, s)
