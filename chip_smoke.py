@@ -260,20 +260,29 @@ Phases, each of which raises on failure (nothing is caught):
              time over its operations (the device traced alone; gat-cora's
              also read from the raw events and from the event list of one
              profile, which must agree), its roofline terms on
-             the H100's constants and its ms over their lower bound; their
-             records written to build/roofline/ and rendered by
-             roofline.tables.table. No kernel of csrc/ is on these steps;
+             the H100's constants and its ms over their lower bound, and
+             its temp_bytes (the CUDA allocator's peak less the new
+             outputs) beside the live-storage counter's (count.LiveBytes)
+             on a meta trace of the same shapes, within 10% of it on the
+             two LM cells, and decode_32k's meta counts (the peak among
+             them) given exactly by the dry run's layer fit from 2, 3 and
+             4 layers (a train step is not fitted); their records written to
+             build/roofline/ and rendered by roofline.tables.table. No
+             kernel of csrc/ is on these steps;
   dryrun     python -m repro_torch.launch.dryrun on the card's host with no
-             GPU visible to it, five runs at once: gat-cora molecule on the
+             GPU visible to it, six runs at once: gat-cora molecule on the
              pod (256 ranks) and multipod (512) meshes, bert4rec serve_p99,
-             and the stream shapes bulk_s1m_r2m (coordinated_xla) and
-             coord_s1m_r2m (shardmap) on pod; each record ok, with its mesh's
-             chips, positive model flops, bytes and argument bytes, positive
-             counted flops on a model cell, wire bytes exactly where a plan's
-             calls or a rule gave a collective, and each stream plan's own
-             calls (pjit's one all_gather; shardmap's 14 all_to_alls and one
-             psum); the pod records rendered by python -m
-             repro_torch.roofline.tables. No kernel of csrc/ is on this path;
+             smollm-135m prefill_32k (its counts fitted from traces at 2, 3
+             and 4 layers), and the stream shapes bulk_s1m_r2m
+             (coordinated_xla) and coord_s1m_r2m (shardmap) on pod; each
+             record ok, with its mesh's chips, positive model flops, bytes,
+             argument bytes and temp_bytes, positive counted flops on a
+             model cell, the LM cell fitted and its model_flops the cell
+             builder's, wire bytes exactly where a plan's calls or a rule
+             gave a collective, and each stream plan's own calls (pjit's one
+             all_gather; shardmap's 14 all_to_alls and one psum); the pod
+             records rendered by python -m repro_torch.roofline.tables. No
+             kernel of csrc/ is on this path;
   kernels    each kernel and its plain version at the main path's full-size
              shapes: equal, and timed with CUDA events beside its bound and,
              where one PyTorch call computes the same function, that call;
@@ -3977,6 +3986,10 @@ def phase_gnn_full(dev, card: str) -> dict:
     return out
 
 
+# phase cells (c): how far the live-storage counter's temp_bytes on meta
+# may be from the CUDA allocator's on an LM cell
+TEMP_RTOL = 0.10
+
 # phase cells (c): (arch, shape, the batch run on one card or None for the
 # cell's own). smollm-135m train_4k at seq 4,096 runs 8 of its 256
 # sequences: with remat, one layer's recomputed attention keeps its float32
@@ -3992,6 +4005,30 @@ CELL_RUNS = (
     ("egnn", "molecule", None),
     ("bert4rec", "serve_p99", None),
 )
+
+
+def layer_fit(arch: str, shape: str, batch, whole) -> dict:
+    """The dry run's layer fit (``launch/dryrun.py::model_counts``) of a
+    full-width LM prefill or decode cell at a cut batch: its step traced
+    on ``meta`` at ``FIT_LAYERS`` layers and each count of
+    ``count.StepCount`` (flops, bytes, aten ops, the live-storage peak,
+    the new outputs' bytes) taken at the config's ``n_layers``. Raises unless every count equals
+    ``whole``'s, the trace of all the layers at the same shapes."""
+    from repro_torch.configs import cells
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import count
+
+    traces = []
+    for n in dryrun.FIT_LAYERS:
+        c = cells.build_cell(arch, shape, overrides={"n_layers": n})
+        traces.append(vars(count.count_step(c.fn, count.materialize(c, "meta", batch=batch))[1]))
+    n_layers = cells.build_cell(arch, shape).config.n_layers
+    fitted = {k: dryrun.fit_at(dryrun.FIT_LAYERS, [t[k] for t in traces], n_layers)
+              for k in traces[0]}
+    if fitted != vars(whole):
+        raise AssertionError(f"cells (c) {arch} {shape} (batch {batch}): the layer fit "
+                             f"{fitted} is not the whole trace's {vars(whole)}")
+    return fitted
 
 
 def tree_nbytes(tree) -> int:
@@ -4065,6 +4102,7 @@ def phase_cells(dev, card: str) -> dict:
     import torch
 
     from repro_torch.configs import cells
+    from repro_torch.launch import dryrun
     from repro_torch.roofline import count, tables
     from repro_torch.roofline.report import roofline_terms
 
@@ -4116,6 +4154,22 @@ def phase_cells(dev, card: str) -> dict:
         t0 = time.perf_counter()
         rec = count.record(cell, args)  # the warm-up step, counted
         count_s = time.perf_counter() - t0
+        # the live-storage counter on a meta trace of the same shapes
+        t0 = time.perf_counter()
+        _, meta = count.count_step(cell.fn, count.materialize(cell, "meta", batch=batch))
+        meta_s = time.perf_counter() - t0
+        temp = {"cuda": rec["memory"]["temp_bytes"], "meta_live": meta.temp_bytes,
+                "meta_over_cuda": meta.temp_bytes / max(rec["memory"]["temp_bytes"], 1),
+                "meta_trace_s": meta_s, "meta_flops": meta.flops, "meta_aten_ops": meta.ops}
+        # the LM steps allocate nothing inside an op that is large beside
+        # their temporaries: the two counts agree within TEMP_RTOL there
+        if not meta.temp_bytes > 0 or (arch in cells.LM_ARCHS and abs(
+                temp["meta_over_cuda"] - 1) > TEMP_RTOL):
+            raise AssertionError(f"cells (c) {arch} {shape}: temp_bytes {temp}")
+        if dryrun.fits_layers(cell):  # the dry run's layer fit at full width
+            t0 = time.perf_counter()
+            layer_fit(arch, shape, batch, meta)
+            temp["layer_fit_s"] = time.perf_counter() - t0
         ms, st = cell_steps(cell, args, 3)
         del args
         t0 = time.perf_counter()
@@ -4128,7 +4182,7 @@ def phase_cells(dev, card: str) -> dict:
         steady = sorted(ms)[1]
         analytic = rec["cost"]["flops_analytic_total"]
         run = {"batch": batch, "setup_s": setup_s, "profile_s": busy_s, "count_s": count_s,
-               "ms": ms, "ms_median": steady,
+               "temp_bytes": temp, "ms": ms, "ms_median": steady,
                "step_profile": busy, "device_idle_share": 1.0 - busy["device_busy_ms"] / steady,
                "busy_readings": readings,
                "terms": {k: t[k] for k in ("compute_s", "memory_s", "collective_s", "bound",
@@ -4147,6 +4201,10 @@ def phase_cells(dev, card: str) -> dict:
         torch.cuda.empty_cache()
     table = tables.table(records)
     print(table, flush=True)
+    for cell_name, run in runs.items():
+        t = run["temp_bytes"]
+        print(f"cells (c) temp_bytes {cell_name} (batch {run['batch']}): cuda {t['cuda']} "
+              f"meta live {t['meta_live']} meta/cuda {t['meta_over_cuda']}", flush=True)
     out["c"] = {"runs": runs, "table": table}
     emit({"phase": "cells", "a": out["a"], "b_cases": out["b"]["cases"],
           "b_seconds": out["b"]["seconds"], "ok": True})
@@ -4155,7 +4213,8 @@ def phase_cells(dev, card: str) -> dict:
 
 # the dry run's cells on the card's host: (arch, shape, multipod)
 DRYRUN_CELLS = (("gat-cora", "molecule", False), ("gat-cora", "molecule", True),
-                ("bert4rec", "serve_p99", False), ("triangle-stream", "bulk_s1m_r2m", False),
+                ("bert4rec", "serve_p99", False), ("smollm-135m", "prefill_32k", False),
+                ("triangle-stream", "bulk_s1m_r2m", False),
                 ("triangle-stream", "coord_s1m_r2m", False))
 # the collectives a stream plan calls on the pod mesh: make_pjit_update's
 # all_gather of the batch, make_coordinated_update's 14 all_to_alls and
@@ -4168,7 +4227,13 @@ def phase_dryrun(card: str) -> dict:
     """The dry run (module docstring, phase dryrun): each cell of
     DRYRUN_CELLS through ``python -m repro_torch.launch.dryrun``, all at once,
     with no GPU visible to them; each record checked, then the pod records
-    rendered by ``python -m repro_torch.roofline.tables``."""
+    rendered by ``python -m repro_torch.roofline.tables``. smollm-135m
+    prefill_32k, which timed out at 900 s when traced whole, is fitted from
+    2, 3 and 4 layers; its chips and model_flops are the cell builder's,
+    which a whole trace also writes."""
+    from repro_torch.configs import cells
+    from repro_torch.launch.mesh import make_production_mesh
+
     out_dir = ROOT / "build" / "dryrun"
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
@@ -4196,9 +4261,15 @@ def phase_dryrun(card: str) -> dict:
         rec = json.loads((out_dir / f"{arch}__{shape}__{mesh}.json").read_text())
         coll = rec["collectives"]
         stream = arch == "triangle-stream"
+        lm = arch in cells.LM_ARCHS
+        if lm:
+            axes = tuple(make_production_mesh(multi_pod=mp).axis_names)
+            want_mf = cells.build_cell(arch, shape, axes).model_flops
         ok = (rec["ok"] and rec["chips"] == (512 if mp else 256) and rec["mesh"] == mesh
               and rec["model_flops"] > 0 and rec["cost"]["bytes_accessed"] > 0
               and rec["memory"]["argument_bytes"] > 0 and rec["hlo_size"] > 0
+              and rec["memory"]["temp_bytes"] > 0
+              and (not lm or (rec["layer_fit"] == [2, 3, 4] and rec["model_flops"] == want_mf))
               and (stream or rec["cost"]["flops"] > 0)
               # positive wire bytes wherever a plan's calls or a rule gave a collective
               and (coll["wire_bytes_total"] > 0) == bool(coll["counts"])
@@ -4211,7 +4282,8 @@ def phase_dryrun(card: str) -> dict:
                           "hlo_size": rec["hlo_size"], "flops": rec["cost"]["flops"],
                           "bytes_accessed": rec["cost"]["bytes_accessed"],
                           "argument_bytes": rec["memory"]["argument_bytes"],
-                          "collectives": coll})
+                          "temp_bytes": rec["memory"]["temp_bytes"],
+                          "layer_fit": rec.get("layer_fit"), "collectives": coll})
     table = subprocess.run(
         [sys.executable, "-m", "repro_torch.roofline.tables", "--dir", str(out_dir), "--mesh",
          "pod"], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
@@ -4221,6 +4293,7 @@ def phase_dryrun(card: str) -> dict:
     want = sorted([a, s] for a, s, mp in DRYRUN_CELLS if not mp)
     if sorted(rows) != want:
         raise AssertionError(f"dryrun: the table's rows {rows} are not the pod cells {want}")
+    print(f"dryrun: phase wall {wall:.1f} s", flush=True)
     emit({"phase": "dryrun", "card": card, "seconds": wall, "cells": cells_out, "ok": True})
     return {"seconds": wall, "cells": cells_out, "table": table}
 

@@ -11,46 +11,75 @@ The reference lowers each cell's step under ``jit`` with its shardings over
 512 placeholder CPU devices and reads the compiled module. PyTorch has no
 such partitioner. Here the mesh is ``launch/mesh.py::make_production_mesh``
 with every rank on the ``meta`` device, a cell's arguments are the ``meta``
-tensors of ``build_cell``, and its step runs once on them, shapes only,
-under ``roofline/count.py``'s counters (``count_step``). A stream cell
+tensors of ``build_cell``, and its step runs on them, shapes only, under
+``roofline/count.py::count_step`` (one ``StepCounter``). A stream cell
 builds its ``EstimatorState`` and batch on ``meta`` (the key the port's
 int64 (2,)), lays the state out with the plan's own ``layout`` over the
 mesh and runs one update of ``make_pjit_update`` (``coordinated_xla``,
 ``independent``; ``n_valid`` a ``meta`` int32 scalar) or
 ``make_coordinated_update`` (``shardmap``, ``capacity_factor`` from
 ``--set``, default 2.0; ``n_valid`` the host int s, since the plan casts it
-with ``int``). A record (``--out-dir``/``{arch}__{shape}__{mesh}.json``) has
+with ``int``).
+
+The reference traces a layer stack, a chunk loop and the micro-batches
+once each (``lax.scan``); the port's eager step runs every iteration, and
+a ``prefill_32k`` step traced whole takes over 900 s. So an LM prefill or
+decode cell is traced at ``FIT_LAYERS`` = 2, 3 and 4 layers (its other
+overrides kept), and each count of the record is the degree-2 polynomial
+through those three, taken at the config's ``n_layers`` in Python
+integers and divided by ``chips`` only at the end (``model_counts``,
+``fits_layers``). Their flops, aten ops and bytes are affine in the
+layers, and their live-storage peak, a maximum over the step, is where
+it was held to a whole trace: ``tests/test_torch_dryrun.py`` holds every count of the fit to a whole
+trace at smoke width (6 layers) for every LM arch, ``chip_smoke.py``'s
+phase cells at full width for smollm-135m ``decode_32k`` (batch 64), and
+``tools/time_counters.py --whole`` at full width on the card's host
+(``PERF.md`` §6, PR 27). A train step is traced whole: its bytes have a
+constant second difference in the layers (one stacked gradient a layer),
+which the fit would take, but its peak is a maximum over the forward, the
+loss and the backward, and at full width the part that holds it changes
+between 4 and 30 layers, so a fit from 2-4 layers is short of it. The
+record's ``layer_fit`` is ``[2, 3, 4]`` (None where the step was traced
+whole: train and non-LM cells, and an LM config of at most 4 layers).
+A record (``--out-dir``/``{arch}__{shape}__{mesh}.json``) has
 the reference's keys, which ``roofline/tables.py`` reads:
 
 * ``chips`` (256 or 512), ``mesh``, ``arch``, ``shape``, ``ok``,
-  ``overrides``;
+  ``overrides``, ``layer_fit``;
 * ``model_flops`` and ``cost.flops_analytic_total`` (``roofline/flops.py``;
   absent for a stream cell, as in the reference): the reference's
-  arithmetic, equal to its record;
+  arithmetic, equal to its record, from the full cell;
 * ``memory.argument_bytes``: every argument leaf's bytes on one rank, each
   dimension its spec shards ceil-divided by its axes' sizes
-  (``train/sharding.py::local_bytes``). XLA's figure leaves out the
-  arguments the step never reads (``jit``'s ``keep_unused=False``: the key
-  of a GNN or LM train step, bert4rec's ``wu`` when it scores); counted
-  with them, it equals this one up to the key's dtype (int64 (2,) here,
-  uint32 (2,) there). ``output_bytes`` the same way from ``out_specs``
-  (the step's ``meta`` outputs, whole, where a cell has none);
-  ``alias_bytes`` those of the outputs that are an argument tensor itself
-  (identity; a ``meta`` storage has no address); ``temp_bytes`` 0: the
-  port does not estimate a step's temporaries;
-* ``cost.flops`` and ``cost.bytes_accessed``: ``FlopCounterMode``'s and
-  ``ByteCounter``'s counts over the whole step (every shard of a stream
-  plan), divided by ``chips``: the floor of a perfect partition, without
-  the work a partitioner replicates. ``FlopCounterMode`` counts products
-  only, which no stream plan runs: a stream cell's trace runs
-  ``ByteCounter`` alone and its ``cost.flops`` is 0;
+  (``train/sharding.py::local_bytes``), from the full cell. XLA's figure
+  leaves out the arguments the step never reads (``jit``'s
+  ``keep_unused=False``: the key of a GNN or LM train step, bert4rec's
+  ``wu`` when it scores); counted with them, it equals this one up to the
+  key's dtype (int64 (2,) here, uint32 (2,) there). ``output_bytes`` the
+  same way from ``out_specs`` (the step's ``meta`` outputs, whole, where a
+  cell has none); ``alias_bytes`` those of the outputs that are an
+  argument tensor itself (identity; a ``meta`` storage has no address);
+* ``memory.temp_bytes``: ``LiveBytes``' peak of the storages the whole
+  step's ops made, less its new outputs' storages, over ``chips`` (rounded
+  up): the floor of a perfect partition, as ``cost`` is. XLA's
+  ``temp_size_in_bytes`` is one device's buffers after partitioning,
+  fusion, scheduling and buffer reuse; this eager step fuses nothing and
+  keeps every intermediate, on no partition, so it is a different
+  quantity, comparable between cells and runs of the port;
+* ``cost.flops`` and ``cost.bytes_accessed``: ``FlopCounterMode``'s (by its
+  rules) and ``ByteCounter``'s counts over the whole step (every shard of a
+  stream plan), divided by ``chips``: the floor of a perfect partition,
+  without the work a partitioner replicates. ``FlopCounterMode`` counts
+  products only, which no stream plan runs: a stream cell counts no flops
+  and its ``cost.flops`` is 0;
 * ``collectives``: ``roofline/collectives.py``'s dict, ``source``
   ``counted`` (a stream plan's own calls) or ``derived`` (a model cell's
   specs, with the ``rules`` that gave any; a floor);
 * ``seconds_to_compile`` (the seconds of ``build_cell``, or of the stream
-  cell's state, layout and plan, plus the trace) and ``hlo_size`` (the
-  trace's data-moving aten ops) keep the reference's names with these
-  meanings.
+  cell's state, layout and plan, plus the trace; for a fitted record the
+  full cell's build and the three traces) and ``hlo_size`` (the step's
+  data-moving aten ops; fitted, the count a whole trace would give) keep
+  the reference's names with these meanings.
 
 A cell whose step fails on ``meta`` (a data-dependent shape, a host read
 of a tensor) writes ``ok: false`` with the traceback, as a cell that fails
@@ -58,12 +87,14 @@ to compile does in the reference. ``--all`` runs every cell on both meshes,
 one subprocess each (``--jobs`` at once, default 1), skipping those with an
 ``ok`` record; a subprocess past ``--timeout`` seconds is killed and its
 cell written ``ok: false`` (the reference's ``--all`` stops there). Exit
-codes are the reference's: 0, or 1 when a cell failed.
+codes are the reference's: 0, or 1 when a cell failed. With ``--jobs 8
+--timeout 900`` on an 8-core host every cell finishes (``PERF.md`` §6).
 """
 from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import fractions
 import json
 import math
 import pathlib
@@ -79,7 +110,7 @@ from repro_torch.configs import cells
 from repro_torch.configs.triangle_stream import SHAPES as STREAM_SHAPES
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.roofline import collectives
-from repro_torch.roofline.count import ByteCounter, count_step
+from repro_torch.roofline.count import count_step
 from repro_torch.roofline.flops import cell_analytic_flops
 from repro_torch.train.sharding import P, local_bytes, spec_leaves
 
@@ -88,42 +119,103 @@ def _bytes(tree, specs, mesh_shape) -> int:
     return sum(local_bytes(t, s, mesh_shape) for t, s in spec_leaves(tree, specs))
 
 
-def _record(mesh, seconds, memory, flops, nbytes, ops, colls, model_flops) -> dict:
-    return {
-        "chips": mesh.size,
-        "seconds_to_compile": seconds,
-        "memory": memory,
-        "cost": {"flops": flops / mesh.size, "bytes_accessed": nbytes / mesh.size},
-        "collectives": colls,
-        "model_flops": model_flops,
-        "hlo_size": ops,
-    }
+# the layer counts an LM cell is traced at; its counts are the degree-2
+# polynomial through them, taken at the config's n_layers
+FIT_LAYERS = (2, 3, 4)
 
 
-def run_model_cell(arch: str, shape: str, multi_pod: bool, overrides=None) -> dict:
-    mesh = make_production_mesh(multi_pod=multi_pod)
-    t0 = time.time()
-    cell = cells.build_cell(arch, shape, tuple(mesh.axis_names), overrides=overrides)
-    out, flops, nbytes, ops = count_step(cell.fn, cell.args)
-    seconds = time.time() - t0
-    sizes = mesh.shape
+def _trace(cell, sizes) -> dict:
+    """One counted ``meta`` trace of ``cell``'s step: the whole step's
+    counts (``count_step``) and the per-rank bytes of its outputs, in
+    Python integers."""
+    out, n = count_step(cell.fn, cell.args)
     if cell.out_specs is None:  # outputs left to the partitioner: count them whole
         outs = [(t, P()) for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
     else:
         outs = list(spec_leaves(out, cell.out_specs))
     arg_ids = {id(t) for t in tree_leaves(cell.args)}
-    memory = {
-        "argument_bytes": _bytes(cell.args, cell.in_specs, sizes),
-        "output_bytes": sum(local_bytes(t, s, sizes) for t, s in outs),
-        "temp_bytes": 0,
-        "alias_bytes": sum(local_bytes(t, s, sizes) for t, s in outs if id(t) in arg_ids),
+    return {"flops": n.flops, "bytes": n.bytes, "ops": n.ops, "peak": n.peak,
+            "new_out_bytes": n.new_out_bytes,
+            "output_bytes": sum(local_bytes(t, s, sizes) for t, s in outs),
+            "alias_bytes": sum(local_bytes(t, s, sizes) for t, s in outs if id(t) in arg_ids)}
+
+
+def fit_at(xs, ys, x) -> int:
+    """The polynomial of degree ``len(xs) - 1`` through the integer points
+    ``(xs, ys)``, at ``x``: Lagrange's form in exact fractions. Raises
+    unless the value is an integer."""
+    total = fractions.Fraction(0)
+    for i, (xi, yi) in enumerate(zip(xs, ys)):
+        term = fractions.Fraction(yi)
+        for j, xj in enumerate(xs):
+            if j != i:
+                term *= fractions.Fraction(x - xj, xi - xj)
+        total += term
+    if total.denominator != 1:
+        raise ValueError(f"the fit through {list(zip(xs, ys))} is {total} at {x}")
+    return int(total)
+
+
+def _record(mesh, seconds, counts, argument_bytes, colls, model_flops) -> dict:
+    """A record from a step's whole counts: cost and temporaries over the
+    ranks, divided only here."""
+    chips = mesh.size
+    temp = max(counts["peak"] - counts["new_out_bytes"], 0)
+    return {
+        "chips": chips,
+        "seconds_to_compile": seconds,
+        "memory": {"argument_bytes": argument_bytes, "output_bytes": counts["output_bytes"],
+                   "temp_bytes": -(-temp // chips), "alias_bytes": counts["alias_bytes"]},
+        "cost": {"flops": counts["flops"] / chips, "bytes_accessed": counts["bytes"] / chips},
+        "collectives": colls,
+        "model_flops": model_flops,
+        "hlo_size": counts["ops"],
     }
+
+
+def fits_layers(cell) -> bool:
+    """Whether the dry run fits ``cell``'s counts from ``FIT_LAYERS``: an
+    LM prefill or decode step with more layers than those (module
+    docstring)."""
+    return (cell.arch in cells.LM_ARCHS and cell.kind != "train"
+            and cell.config.n_layers > max(FIT_LAYERS))
+
+
+def model_counts(arch: str, shape: str, axes, sizes, overrides=None, *,
+                 smoke: bool = False) -> tuple:
+    """(the cell, its step's counts, the layer counts they were fitted at
+    or None). Where ``fits_layers``, the step is traced at each of
+    ``FIT_LAYERS``, its other overrides kept, and every count is the
+    degree-2 polynomial through those traces at the config's ``n_layers``;
+    every other cell is traced whole, once. ``smoke`` builds the cell at
+    its smoke config and shapes."""
+    overrides = dict(overrides or {})
+    cell = cells.build_cell(arch, shape, axes, smoke=smoke, overrides=overrides or None)
+    if not fits_layers(cell):
+        return cell, _trace(cell, sizes), None
+    traces = [_trace(cells.build_cell(arch, shape, axes, smoke=smoke,
+                                      overrides=overrides | {"n_layers": n}), sizes)
+              for n in FIT_LAYERS]
+    counts = {k: fit_at(FIT_LAYERS, [t[k] for t in traces], cell.config.n_layers)
+              for k in traces[0]}
+    return cell, counts, list(FIT_LAYERS)
+
+
+def run_model_cell(arch: str, shape: str, multi_pod: bool, overrides=None) -> dict:
+    """One model cell's record (module docstring; ``model_counts``)."""
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    sizes = mesh.shape
+    t0 = time.time()
+    cell, counts, layers = model_counts(arch, shape, tuple(mesh.axis_names), sizes, overrides)
+    seconds = time.time() - t0
     calls, rules = collectives.derive(cell, sizes)
     colls = collectives.collective_stats(calls) | {"source": "derived", "rules": rules}
-    rec = _record(mesh, seconds, memory, flops, nbytes, ops, colls, cell.model_flops)
+    rec = _record(mesh, seconds, counts, _bytes(cell.args, cell.in_specs, sizes), colls,
+                  cell.model_flops)
     rec["cost"]["flops_analytic_total"] = cell_analytic_flops(cell)  # None -> counted flops
-    rec |= {"arch": arch, "shape": shape, "mesh": "multipod" if multi_pod else "pod"}
-    print(memory)
+    rec |= {"arch": arch, "shape": shape, "mesh": "multipod" if multi_pod else "pod",
+            "layer_fit": layers}
+    print(rec["memory"])
     print({"flops": rec["cost"]["flops"], "bytes accessed": rec["cost"]["bytes_accessed"]})
     return rec
 
@@ -161,27 +253,28 @@ def run_stream_cell(shape: str, multi_pod: bool, capacity_factor=2.0) -> dict:
     sharded = ShardedState(update.layout.shard(state), update.layout)
     # the plans run no product that FlopCounterMode counts (a test holds its
     # count of a small update at 0), and skipping it saves a third of the trace
-    with collectives.recording() as calls, ByteCounter() as moved:
-        out = update(sharded, W, n_valid, key)
+    with collectives.recording() as calls:
+        out, n = count_step(update, (sharded, W, n_valid, key), flops=False)
     seconds = time.time() - t0
     sizes = mesh.shape
     state_specs = scheme_state_specs("global", axes)
     w_spec = P() if w_mode == "independent" else P(axes, None)
     out_state = out[0] if w_mode == "shardmap" else out
-    memory = {
-        "argument_bytes": _bytes((state, W, nv, key), (state_specs, w_spec, P(), P()), sizes),
+    counts = {
+        "flops": 0, "bytes": n.bytes, "ops": n.ops, "peak": n.peak,
+        "new_out_bytes": n.new_out_bytes,
         "output_bytes": _bytes(state, state_specs, sizes) + (8 if w_mode == "shardmap" else 0),
-        "temp_bytes": 0,
         "alias_bytes": sum(t.numel() * t.element_size() for t in out_state.shards[0]
                            if any(t is a for a in sharded.shards[0])),
     }
     # useful work floor: one pass of comparisons for sort(2s) + r estimator updates
     model_flops = 2 * s * max(math.log2(max(s, 2)), 1) + 4 * r
     colls = collectives.collective_stats(calls) | {"source": "counted"}
-    rec = _record(mesh, seconds, memory, 0.0, moved.bytes, moved.ops, colls, model_flops)
+    argument_bytes = _bytes((state, W, nv, key), (state_specs, w_spec, P(), P()), sizes)
+    rec = _record(mesh, seconds, counts, argument_bytes, colls, model_flops)
     rec |= {"arch": "triangle-stream", "shape": shape,
             "mesh": "multipod" if multi_pod else "pod"}
-    print(memory)
+    print(rec["memory"])
     return rec
 
 
@@ -218,9 +311,10 @@ def _run_all(out_dir: pathlib.Path, timeout: int, jobs: int) -> int:
         print(f"[ ok ] {tag} ({time.time()-t0:.0f}s)", flush=True)
         return None
 
+    t0 = time.time()
     with concurrent.futures.ThreadPoolExecutor(max_workers=max(jobs, 1)) as pool:
         failures = [t for t in pool.map(one, runs) if t is not None]
-    print(f"DONE failures={len(failures)}: {failures}")
+    print(f"DONE failures={len(failures)} wall_s={time.time() - t0:.1f}: {failures}")
     return 1 if failures else 0
 
 

@@ -23,9 +23,9 @@ it is given, and is counted op by op as it runs:
   count is then the step's flops);
 * ``memory``: the arguments' bytes, the outputs' (``alias_bytes`` for those
   that share an argument's storage, as the decode step's cache does), and
-  on a CUDA device the peak the step allocated beyond what was held before
-  it (``temp_bytes``: that peak less the new outputs; 0 elsewhere, where no
-  allocator statistics exist);
+  ``temp_bytes``, the step's peak less its new outputs: on a CUDA device
+  the peak the allocator gave out beyond what was held before the step;
+  elsewhere ``LiveBytes``' peak of the storages the step's ops made;
 * ``collectives``: none on one card, so ``wire_bytes_total`` is 0.
 
 ``roofline.report.roofline_terms`` and ``roofline.tables.table`` read the
@@ -35,11 +35,14 @@ too large for one card) scales ``model_flops`` and the analytic flops by
 formula is linear in the batch. ``python -m repro_torch.roofline.tables``
 renders a directory of such records.
 
-``count_step`` runs the two counters around one call; the dry run
-(``launch/dryrun.py``) uses it on a cell's ``meta`` arguments. ``record``
-refuses ``meta`` arguments (see its docstring).
+``count_step`` runs the three counters (flops, bytes, live storage) around
+one call; the dry run (``launch/dryrun.py``) uses it on a cell's ``meta``
+arguments. ``record`` refuses ``meta`` arguments (see its docstring).
 """
 from __future__ import annotations
+
+import dataclasses
+import weakref
 
 import numpy as np
 import torch
@@ -89,7 +92,18 @@ _UNREAD_FIRST = {_aten.zeros_like.default, _aten.ones_like.default, _aten.full_l
                  _aten.fill_.Scalar, _aten.fill_.Tensor, _aten.zero_.default}
 
 
-class ByteCounter(TorchDispatchMode):
+class _Counter(TorchDispatchMode):
+    """A mode that runs each aten op and hands it, with its results, to
+    ``count``."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        self.count(func, args, kwargs, out)
+        return out
+
+
+class ByteCounter(_Counter):
     """Adds up the bytes of each aten op's tensor operands and results, and
     counts the ops that move data (module docstring): views (ops whose
     result aliases an input without writing it, and ``_unsafe_view``) and
@@ -102,16 +116,14 @@ class ByteCounter(TorchDispatchMode):
         self.ops = 0
         self._skip: dict = {}
 
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        out = func(*args, **kwargs)
+    def count(self, func, args, kwargs, out):
         skip = self._skip.get(func)
         if skip is None:
             ret = func._schema.returns
             skip = self._skip[func] = func in _VIEWS or func in _ALLOCATES or bool(
                 ret and ret[0].alias_info is not None and not ret[0].alias_info.is_write)
         if skip:
-            return out
+            return
         outs = out if isinstance(out, (list, tuple)) else (out,)
         if func in _GATHERS:
             self.bytes += _tensor_bytes((*args[1:], *kwargs.values())) + 2 * _tensor_bytes(outs)
@@ -120,6 +132,171 @@ class ByteCounter(TorchDispatchMode):
         else:
             self.bytes += _tensor_bytes((*args, *kwargs.values())) + _tensor_bytes(outs)
         self.ops += 1
+
+
+class LiveBytes(_Counter):
+    """The peak of the bytes held at once by the storages that the ops
+    under it make. Each op result's storage (``untyped_storage()``, keyed by
+    its ``_cdata``: a view shares its base's, and an in-place op returns a
+    storage already there) adds its ``nbytes()`` when it first appears and
+    is taken off when it is freed, by a weak reference's callback (PyTorch
+    keeps a storage's Python object alive as long as any tensor holds the
+    storage). The storages of ``held``, the step's arguments, add nothing.
+    Autograd's saved tensors keep their storages alive until the backward
+    frees them, so they count. Shapes alone decide the count, so a ``meta``
+    run gives a CPU or CUDA run's; what a kernel allocates inside one op
+    (a library's workspace) is not seen."""
+
+    def __init__(self, held=()):
+        super().__init__()
+        self.live = 0
+        self.peak = 0
+        self._known = {t.untyped_storage()._cdata for t in held}
+        self._refs: dict = {}
+
+    def count(self, func, args, kwargs, out):
+        for t in out if isinstance(out, (list, tuple)) else (out,):
+            if isinstance(t, torch.Tensor):
+                self._add(t.untyped_storage())
+
+    def _add(self, storage):
+        key = storage._cdata
+        if key in self._known:
+            return
+        n = storage.nbytes()
+        self._known.add(key)
+        self._refs[key] = weakref.ref(storage, lambda _, key=key, n=n: self._free(key, n))
+        self.live += n
+        self.peak = max(self.peak, self.live)
+
+    def _free(self, key, n):
+        self.live -= n
+        self._known.discard(key)
+        del self._refs[key]
+
+
+_CIA = torch._C.DispatchKey.CompositeImplicitAutograd
+
+
+def _plain(func, args, kwargs):
+    return func(*args, **kwargs)
+
+
+class _Flops(TorchDispatchMode):
+    """``FlopCounterMode``'s total, by its rules and its formulas
+    (``flop_registry``), without its per-module bookkeeping: an op that
+    has a ``CompositeImplicitAutograd`` kernel is decomposed under this
+    mode and its parts counted; every other op counts its formula, if it
+    has one, on its operands and results."""
+
+    def __init__(self):
+        super().__init__()
+        self.total = 0
+        self._registry = FlopCounterMode(display=False).flop_registry
+        self._decomposes: dict = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        return self.run(func, args, kwargs or {})
+
+    def run(self, func, args, kwargs, runner=_plain):
+        """``func`` run by ``runner(func, args, kwargs)``, counted."""
+        dec = self._decomposes.get(func)
+        if dec is None:
+            dec = self._decomposes[func] = func is not torch.ops.prim.device.default and (
+                _CIA in func.py_kernels
+                or torch._C._dispatch_has_kernel_for_dispatch_key(func.name(), _CIA))
+        if dec:
+            with self:
+                out = func.decompose(*args, **kwargs)
+            if out is not NotImplemented:
+                return out
+        out = runner(func, args, kwargs)
+        formula = self._registry.get(func._overloadpacket)
+        if formula is not None:
+            self.total += formula(*args, **kwargs, out_val=out)
+        return out
+
+
+class _MetaShapes:
+    """Runs an aten op; on ``meta`` operands, an op whose results are
+    fresh tensors (no operand or result aliased or written in its schema,
+    and no result sharing an operand's storage when first run) runs once
+    for each set of operand shapes, strides, dtypes and other arguments,
+    and after that its results are new ``meta`` tensors of the shapes,
+    strides and dtypes it gave. A ``meta`` op computes only those, many of
+    them in Python (``torch._refs``), so the trace is the same and
+    faster."""
+
+    _SCALARS = (int, float, bool, str, type(None), torch.dtype, torch.device, torch.layout,
+                torch.memory_format)
+
+    def __init__(self):
+        self._fresh: dict = {}
+        self._results: dict = {}
+
+    def _key(self, x):
+        if isinstance(x, torch.Tensor):
+            if x.device.type != "meta":
+                raise TypeError
+            return (tuple(x.shape), x.stride(), x.dtype)
+        if isinstance(x, self._SCALARS):
+            return (type(x), x)
+        if isinstance(x, (list, tuple)):
+            return (type(x), tuple(self._key(y) for y in x))
+        raise TypeError
+
+    def __call__(self, func, args, kwargs):
+        fresh = self._fresh.get(func)
+        if fresh is None:
+            schema = func._schema
+            fresh = self._fresh[func] = bool(schema.returns) and not schema.is_mutable and all(
+                a.alias_info is None for a in (*schema.arguments, *schema.returns)) and all(
+                str(r.type) == "Tensor" for r in schema.returns)
+        if not fresh:
+            return func(*args, **kwargs)
+        try:
+            key = (func, self._key(args), self._key(tuple(sorted(kwargs.items()))))
+        except TypeError:
+            return func(*args, **kwargs)
+        got = self._results.get(key)
+        if got is not None:
+            outs = [torch.empty_strided(shape, stride, dtype=dtype, device="meta")
+                    for shape, stride, dtype in got[1]]
+            return tuple(outs) if got[0] else outs[0]
+        out = func(*args, **kwargs)
+        outs = out if isinstance(out, tuple) else (out,)
+        ins = {t.untyped_storage()._cdata for t in _leaves((args, kwargs))}
+        if any(t.untyped_storage()._cdata in ins for t in outs):
+            self._fresh[func] = False  # aliases though its schema does not say so
+        elif all(t.is_meta for t in outs):
+            self._results[key] = (isinstance(out, tuple),
+                                  [(tuple(t.shape), t.stride(), t.dtype) for t in outs])
+        return out
+
+
+class StepCounter(TorchDispatchMode):
+    """``_Flops``, ``ByteCounter`` and ``LiveBytes`` in one mode, so an op
+    passes through Python once: each op the mode receives counts its bytes
+    and storage, and its flops by ``_Flops``' rules (``flops=False`` leaves
+    them out); on ``meta`` arguments (``held``) ops run through
+    ``_MetaShapes``. The counts equal those of the three modes stacked,
+    ``FlopCounterMode`` innermost (a test holds them equal)."""
+
+    def __init__(self, held=(), flops: bool = True):
+        super().__init__()
+        self.flops = _Flops() if flops else None
+        self.moved = ByteCounter()
+        self.live = LiveBytes(held)
+        self._run = _MetaShapes() if any(t.is_meta for t in held) else _plain
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if self.flops is None:
+            out = self._run(func, args, kwargs)
+        else:
+            out = self.flops.run(func, args, kwargs, self._run)
+        self.moved.count(func, args, kwargs, out)
+        self.live.count(func, args, kwargs, out)
         return out
 
 
@@ -128,8 +305,17 @@ def _leaves(tree):
 
 
 def _storage_bytes(tensors) -> int:
-    return sum({t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+    """The bytes of the distinct storages (by ``_cdata``, which a ``meta``
+    storage has too) under ``tensors``."""
+    return sum({t.untyped_storage()._cdata: t.untyped_storage().nbytes()
                 for t in tensors}.values())
+
+
+def _new_out_bytes(out, held) -> int:
+    """The bytes of the storages of ``out``'s tensors that are not one of
+    ``held``'s."""
+    keys = {t.untyped_storage()._cdata for t in held}
+    return _storage_bytes([t for t in _leaves(out) if t.untyped_storage()._cdata not in keys])
 
 
 def batch_scale(cell: cells.Cell, args) -> float:
@@ -143,42 +329,60 @@ def batch_scale(cell: cells.Cell, args) -> float:
     return 1.0
 
 
-def count_step(fn, args) -> tuple:
-    """Run ``fn(*args)`` once under both counters: (its outputs, the flops
-    of ``FlopCounterMode``, the bytes and the data-moving aten ops of
-    ``ByteCounter``). On ``meta`` arguments this is a shape-only trace
-    (``launch/dryrun.py``)."""
-    with FlopCounterMode(display=False) as flops, ByteCounter() as moved:
+@dataclasses.dataclass
+class StepCount:
+    """One counted call, in Python integers: ``FlopCounterMode``'s flops,
+    ``ByteCounter``'s bytes and data-moving aten ops, ``LiveBytes``' peak,
+    and the bytes of the storages of the outputs that are not an
+    argument's (``new_out_bytes``)."""
+
+    flops: int
+    bytes: int
+    ops: int
+    peak: int
+    new_out_bytes: int
+
+    @property
+    def temp_bytes(self) -> int:
+        """The peak less the new outputs (``record``'s definition on CUDA)."""
+        return max(self.peak - self.new_out_bytes, 0)
+
+
+def count_step(fn, args, flops: bool = True) -> tuple:
+    """Run ``fn(*args)`` once under ``StepCounter``: (its outputs, a
+    ``StepCount``). ``flops=False`` counts no flops (0). On ``meta``
+    arguments this is a shape-only trace (``launch/dryrun.py``)."""
+    held = _leaves(args)
+    with StepCounter(held, flops) as c:
         out = fn(*args)
-    return out, float(flops.get_total_flops()), float(moved.bytes), moved.ops
+    return out, StepCount(c.flops.total if c.flops else 0, c.moved.bytes, c.moved.ops,
+                          c.live.peak, _new_out_bytes(out, held))
 
 
 def record(cell: cells.Cell, args, smoke: bool = False) -> dict:
     """Run ``cell.fn(*args)`` once, counted, and return its record (module
     docstring). ``args`` are tensors on one device, shaped as
     ``cell.args`` (the batch may be cut); ``smoke`` says the cell was built
-    with ``smoke=True``. ``meta`` arguments are refused: every ``meta``
-    storage's ``data_ptr`` is 0, so the memory fields, which tell storages
-    apart by it, would fold every argument into one; the dry run
-    (``launch/dryrun.py``) records a ``meta`` step."""
+    with ``smoke=True``. ``meta`` arguments are refused: a record is of a
+    step that ran on a device; the dry run (``launch/dryrun.py``) records a
+    ``meta`` step, per rank of its mesh."""
     dev = next(iter(_leaves(args))).device
     if dev.type == "meta":
-        raise ValueError("count.record runs a step on a device; meta arguments have no "
-                         "storage to measure (use repro_torch.launch.dryrun)")
+        raise ValueError("count.record runs a step on a device; for meta arguments "
+                         "use repro_torch.launch.dryrun")
     on_cuda = dev.type == "cuda"
-    arg_ptrs = {t.untyped_storage().data_ptr() for t in _leaves(args)}
+    arg_keys = {t.untyped_storage()._cdata for t in _leaves(args)}
     if on_cuda:
         torch.cuda.synchronize(dev)
         held = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-    out, flops, moved, ops = count_step(cell.fn, args)
+    out, n = count_step(cell.fn, args)
     if on_cuda:
         torch.cuda.synchronize(dev)
-        peak = torch.cuda.max_memory_allocated(dev) - held
-    outs = _leaves(out)
-    new_outs = [t for t in outs if t.untyped_storage().data_ptr() not in arg_ptrs]
-    aliased = [t for t in outs if t.untyped_storage().data_ptr() in arg_ptrs]
-    out_bytes = _storage_bytes(new_outs)
+        temp = max(torch.cuda.max_memory_allocated(dev) - held - n.new_out_bytes, 0)
+    else:
+        temp = n.temp_bytes
+    aliased = [t for t in _leaves(out) if t.untyped_storage()._cdata in arg_keys]
     scale = batch_scale(cell, args)
     analytic = None if smoke else cell_analytic_flops(cell)
     return {
@@ -191,15 +395,15 @@ def record(cell: cells.Cell, args, smoke: bool = False) -> dict:
         "batch_scale": scale,
         "memory": {
             "argument_bytes": _storage_bytes(_leaves(args)),
-            "output_bytes": out_bytes,
-            "temp_bytes": max(peak - out_bytes, 0) if on_cuda else 0,
+            "output_bytes": n.new_out_bytes,
+            "temp_bytes": temp,
             "alias_bytes": _storage_bytes(aliased),
         },
         "cost": {
-            "flops": flops,
-            "bytes_accessed": moved,
+            "flops": float(n.flops),
+            "bytes_accessed": float(n.bytes),
             "flops_analytic_total": None if analytic is None else analytic * scale,
-            "aten_ops": ops,
+            "aten_ops": n.ops,
         },
         "collectives": {"counts": {}, "out_bytes": {}, "wire_bytes": {},
                         "wire_bytes_total": 0.0},
@@ -218,11 +422,14 @@ def materialize(cell: cells.Cell, device, seed: int = 0, batch: int | None = Non
     cache filled at 0.02 scale with ``pos`` 3. ``batch`` cuts the leading
     batch axis of the step's sequences (and the decode cache's)."""
     dev = torch.device(device)
+    meta = dev.type == "meta"
     cfg = cell.config
     g = np.random.default_rng(seed)
-    gen = torch.Generator(dev).manual_seed(seed)
+    gen = None if meta else torch.Generator(dev).manual_seed(seed)
 
     def ints(t, lo, hi, shape=None):
+        if meta:
+            return torch.empty(shape or tuple(t.shape), dtype=torch.int32, device=dev)
         return torch.from_numpy(g.integers(lo, hi, shape or tuple(t.shape)).astype(np.int32)).to(dev)
 
     def normal(t, shape=None, scale=0.02):

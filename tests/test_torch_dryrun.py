@@ -18,8 +18,16 @@ reference's on the CPU.
   collectives its plan calls; recording leaves a CPU plan's bits alone.
 * ``kernels/ref.py::delete_hits_ref`` against the reference's oracle and
   the plain deletion search; ``count.record`` refuses ``meta`` arguments.
+* The layer-count fit of an LM prefill or decode cell
+  (``dryrun.model_counts``) against a whole trace at smoke width and 6
+  layers, every count equal, and train cells traced whole; the live-storage
+  counter (``count.LiveBytes``) on a function of known peak, on autograd's
+  saved tensors, and equal on ``meta`` and the CPU; ``count.StepCounter``
+  against ``FlopCounterMode``, ``ByteCounter`` and ``LiveBytes`` stacked;
+  a train step's bytes quadratic in the layers.
 
-No test here traces a full LM cell (the smallest takes minutes on ``meta``).
+No test here traces a full-width LM cell (the smallest takes minutes on
+``meta``).
 """
 import json
 import math
@@ -167,7 +175,13 @@ def test_model_cell_matches_reference(reference, arch, shape, multi_pod):
     key_extra = 8 if isinstance(cells.build_cell(arch, shape).args[-1], torch.Tensor) else 0
     assert got["memory"]["argument_bytes"] == \
         want["memory"]["argument_bytes"] + want["dropped_argument_bytes"] + key_extra
-    assert got["memory"]["temp_bytes"] == 0 and got["memory"]["alias_bytes"] == 0
+    # temp_bytes: the live-storage counter's over the whole step, per rank
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    cell = cells.build_cell(arch, shape, tuple(mesh.axis_names))
+    _, n = count.count_step(cell.fn, cell.args)
+    assert got["memory"]["temp_bytes"] > 0
+    assert got["memory"]["temp_bytes"] == -(-n.temp_bytes // mesh.size)
+    assert got["memory"]["alias_bytes"] == 0 and got["layer_fit"] is None
     assert got["cost"]["flops"] > 0 and got["hlo_size"] > 0
 
 
@@ -339,3 +353,123 @@ def test_record_refuses_meta():
     cell = cells.build_cell("gat-cora", "molecule", smoke=True)
     with pytest.raises(ValueError, match="meta"):
         count.record(cell, cell.args, smoke=True)
+
+
+# the steps the dry run fits: prefill and decode of every LM arch
+FIT_CASES = [(a, s) for a in cells.LM_ARCHS for s in ("prefill_32k", "decode_32k")]
+
+
+@pytest.mark.parametrize("arch,shape", FIT_CASES)
+def test_layer_fit_equals_the_whole_trace(arch, shape):
+    """At smoke width on the pod mesh with 6 layers, the counts fitted from
+    2, 3 and 4 layers equal a trace of all 6: flops, bytes, aten ops, the
+    live-storage peak, the new outputs' bytes, per-rank output and alias
+    bytes."""
+    mesh = make_production_mesh()
+    axes = tuple(mesh.axis_names)
+    cell, fitted, layers = dryrun.model_counts(arch, shape, axes, mesh.shape, {"n_layers": 6},
+                                               smoke=True)
+    whole = dryrun._trace(cells.build_cell(arch, shape, axes, smoke=True,
+                                           overrides={"n_layers": 6}), mesh.shape)
+    assert layers == [2, 3, 4] and cell.config.n_layers == 6
+    assert fitted == whole
+    assert whole["peak"] > whole["new_out_bytes"] > 0 and whole["ops"] > 0
+
+
+@pytest.mark.parametrize("arch", cells.LM_ARCHS)
+def test_train_cells_are_traced_whole(arch):
+    """A train step is not fitted (its peak moves between the forward, the
+    loss and the backward as layers are added): at 6 layers its counts are
+    one whole trace's."""
+    mesh = make_production_mesh()
+    axes = tuple(mesh.axis_names)
+    cell, counts, layers = dryrun.model_counts(arch, "train_4k", axes, mesh.shape,
+                                               {"n_layers": 6}, smoke=True)
+    assert layers is None and not dryrun.fits_layers(cell) and cell.config.n_layers == 6
+    assert counts == dryrun._trace(cell, mesh.shape)
+
+
+def test_fit_at_is_exact_in_integers():
+    big = 2**60 + 1  # past float64's integers
+    assert dryrun.fit_at((2, 3, 4), [big + 5, big + 11, big + 19], 61) == \
+        big + 5 + 6 * 59 + 59 * 58
+    assert dryrun.fit_at((2, 3, 4), [4, 9, 16], 30) == 900
+    with pytest.raises(ValueError):
+        dryrun.fit_at((0, 2), [0, 1], 1)
+
+
+def test_live_bytes_of_a_function_of_known_peak():
+    """A result adds its storage once; a view, an in-place op and an
+    argument add nothing; a freed result comes off: peak 12,000 bytes."""
+    x = torch.ones(1000)
+
+    def f(x):
+        a = x * 2  # 4,000
+        b = a.view(10, 100)  # a view: nothing
+        a.add_(1)  # in place: nothing
+        y = x[:10]  # a view of the argument: nothing
+        c = torch.cat([a, a])  # 8,000: live 12,000, the peak
+        del a, b  # frees a: 8,000
+        return c.sum() + y.sum()  # 3 scalars (live 8,012); c is freed on return
+
+    for dev in ("cpu", "meta"):
+        out, n = count.count_step(f, (x.to(dev),))
+        assert (n.peak, n.new_out_bytes, n.temp_bytes) == (12_000, 4, 11_996), dev
+
+
+def test_live_bytes_keeps_autograd_saved_tensors():
+    """exp saves its result for the backward: while the graph holds it,
+    its storage stays live; without grad it is freed with the sum."""
+    w = torch.ones(1000, requires_grad=True)
+
+    def f(w):
+        return (w * 3).exp().sum()
+
+    for grad, live_after in [(True, 4004), (False, 4)]:
+        with torch.set_grad_enabled(grad), count.LiveBytes([w]) as live:
+            loss = f(w)
+        assert live.peak == 8000 and live.live == live_after, grad
+        del loss
+        assert live.live == 0
+
+
+def test_live_peak_equal_on_meta_and_cpu():
+    cell = cells.build_cell("smollm-135m", "train_4k", smoke=True)
+    _, cpu = count.count_step(cell.fn, count.materialize(cell, "cpu"))
+    _, meta = count.count_step(cell.fn, count.materialize(cell, "meta"))
+    assert cpu == meta and cpu.peak > cpu.new_out_bytes > 0
+
+
+@pytest.mark.parametrize("arch,shape", [("granite-moe-1b-a400m", "train_4k"),
+                                        ("gat-cora", "molecule"), ("bert4rec", "train_batch")])
+def test_step_counter_equals_the_stacked_modes(arch, shape):
+    """One ``StepCounter`` (and, on ``meta``, its reused shapes) counts
+    what ``FlopCounterMode``, ``ByteCounter`` and ``LiveBytes`` stacked
+    count, on the CPU and on ``meta``."""
+    cell = cells.build_cell(arch, shape, smoke=True)
+    for dev in ("cpu", "meta"):
+        args = count.materialize(cell, dev)
+        held = count._leaves(args)
+        with FlopCounterMode(display=False) as fc, count.ByteCounter() as moved, \
+                count.LiveBytes(held) as live:
+            out = cell.fn(*args)
+        keys = {t.untyped_storage()._cdata for t in held}
+        new = count._storage_bytes([t for t in count._leaves(out)
+                                    if t.untyped_storage()._cdata not in keys])
+        want = count.StepCount(fc.get_total_flops(), moved.bytes, moved.ops, live.peak, new)
+        _, got = count.count_step(cell.fn, args)
+        assert got == want, dev
+
+
+@pytest.mark.parametrize("arch,d2", [("smollm-135m", 321_024), ("granite-moe-1b-a400m", 250_880),
+                                     ("kimi-k2-1t-a32b", 1_099_776)])
+def test_train_bytes_grow_with_the_square_of_the_layers(arch, d2):
+    """A train step's counted bytes have a constant second difference in
+    the layer count (about one stacked gradient a layer, ROADMAP A.21);
+    its flops and aten ops are affine. Smoke width, pod mesh."""
+    mesh = make_production_mesh()
+    t = [dryrun._trace(cells.build_cell(arch, "train_4k", tuple(mesh.axis_names), smoke=True,
+                                        overrides={"n_layers": n}), mesh.shape)
+         for n in dryrun.FIT_LAYERS]
+    second = {k: t[2][k] - 2 * t[1][k] + t[0][k] for k in ("bytes", "flops", "ops")}
+    assert second == {"bytes": d2, "flops": 0, "ops": 0}
