@@ -230,6 +230,23 @@ Phases, each of which raises on failure (nothing is caught):
              and 59 each step's loss within 1e-5 relative and gradient norms
              within 1e-4 (free-running trajectories part by chaos, so their
              losses are recorded, not gated); the loss falls;
+  examples   the reference's last three examples at their own sizes, through
+             the port's entry points as a user calls them: launch/quickstart.py
+             (3,000-vertex Barabasi-Albert stream, 100,000 estimators, batches
+             of 4,096, one tenant on the per-batch kernel route, through
+             repro_torch.core's package-level API) prints the golden line of
+             examples/quickstart.py exactly; launch/streaming_triangle_count.py
+             (a bank of 3 under run_stream at chunk size 1, 200,000 estimators,
+             batches of 8,192: half the stream checkpointed every 2 batches, a
+             fresh engine that resumes and finishes, an uninterrupted run whose
+             estimates must equal the resumed one's) prints the golden lines of
+             examples/streaming_triangle_count.py but for the seconds; in both,
+             multisearch_counts, the tile sort and segscan each launched
+             (counted from 0 around the run); python -m
+             repro_torch.launch.train_lm --steps 20 --ckpt-every 10 on a fresh
+             --ckpt-dir (smollm-135m FULL, bfloat16, the step count cut) prints
+             examples/train_lm.py's arch= line and a first logged loss within
+             3e-2 of its (golden/examples_small.json, written by JAX);
   gnn_full   the families at full width, float32, adamw at 1e-3: gat-cora
              FULL on full_graph_sm (20 steps, the loss falls), graphcast
              FULL (16 layers, d 512, remat) on 5 minibatch_lg batches that
@@ -3708,6 +3725,84 @@ def phase_gnn_features(dev, card: str) -> dict:
     return out
 
 
+SECONDS = re.compile(r" in [0-9.]+s")
+
+
+def phase_examples(dev, card: str) -> dict:
+    """The reference's quickstart, streaming and train_lm examples through
+    the port's entry points, held to what the reference's own scripts print
+    at their own sizes (golden/examples_small.json). Around each stream the
+    launch counts are set to 0 and read after: multisearch_counts, the tile
+    sort and segscan must each have launched. The quickstart's line must
+    equal the golden's exactly, the streaming example's lines but for the
+    seconds (its determinism assert must hold), and train_lm's arch= line
+    exactly and its first logged loss within BF16_LOSS_RTOL."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import quickstart, streaming_triangle_count
+
+    gold = json.loads((ROOT / "src/repro_torch/golden/examples_small.json").read_text())
+    out = {"card": card}
+
+    def counted(name: str, fn) -> dict:
+        lines = []
+        reset_launches()
+        t0 = time.perf_counter()
+        res = fn(lines.append)
+        torch.cuda.synchronize(dev)
+        host_s = time.perf_counter() - t0
+        launches = {k: LAUNCHES[k] for k in BATCH_KERNELS}
+        if not all(launches.values()):
+            raise AssertionError(f"examples {name}: kernels not launched: {launches}")
+        out[name] = {"host_s": host_s, "launches": launches, "lines": lines}
+        return res
+
+    q = counted("quickstart", lambda echo: quickstart.run(
+        **gold["quickstart"]["args"], device=dev, echo=echo))
+    if out["quickstart"]["lines"] != [gold["quickstart"]["line"]]:
+        raise AssertionError(f"examples quickstart: {out['quickstart']['lines']} != "
+                             f"JAX {gold['quickstart']['line']!r}")
+    out["quickstart"]["state_sha256"] = q["state_sha256"]
+
+    args = dict(gold["streaming"]["args"], seeds=tuple(gold["streaming"]["args"]["seeds"]))
+    ckpt_dir = tempfile.mkdtemp(prefix="examples_stream_")
+    try:
+        st = counted("streaming", lambda echo: streaming_triangle_count.run(
+            **args, ckpt_dir=ckpt_dir, device=dev, echo=echo))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    shown = SECONDS.sub("", "\n".join(out["streaming"]["lines"])).splitlines()
+    if shown != gold["streaming"]["lines"]:
+        raise AssertionError(f"examples streaming: {shown} != JAX {gold['streaming']['lines']}")
+    out["streaming"].update(phase1_s=st["phase1"].seconds, resumed_from=st["resumed_from"],
+                            estimates=st["estimates"].tolist())
+
+    tgold = gold["train_lm"]
+    ckpt_dir = tempfile.mkdtemp(prefix="examples_train_lm_")
+    t0 = time.perf_counter()
+    try:
+        text = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train_lm", "--steps", "20",
+             "--ckpt-every", "10", "--ckpt-dir", ckpt_dir], cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), capture_output=True, text=True,
+            timeout=600, check=True).stdout
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    lines = text.splitlines()
+    first = float(next(ln for ln in lines if ln.startswith("loss: first logged ="))
+                  .split("=")[1].split()[0])
+    if lines[0] != tgold["arch_line"]:
+        raise AssertionError(f"examples train_lm: {lines[0]!r} != JAX {tgold['arch_line']!r}")
+    if abs(first - tgold["first_loss"]) > BF16_LOSS_RTOL * tgold["first_loss"]:
+        raise AssertionError(f"examples train_lm: first logged loss {first} vs JAX "
+                             f"{tgold['first_loss']}")
+    out["train_lm"] = {"host_s": time.perf_counter() - t0, "lines": lines,
+                       "first_loss_rel_err": abs(first - tgold["first_loss"]) / tgold["first_loss"]}
+    emit({"phase": "examples", **out, "ok": True})
+    return out
+
+
 def model_records(one, n_steps: int, params, extra=(), card: str = "") -> dict:
     """``n_steps`` calls of ``one`` (each returning its loss or output), each
     timed by CUDA events; the peak bytes those calls allocated beyond what
@@ -4432,6 +4527,7 @@ def main() -> int:
     phase_train_full(dev, card)
     phase_train_elastic(dev, full)
     phase_gnn_features(dev, card)
+    phase_examples(dev, card)
     phase_gnn_full(dev, card)
     phase_cells(dev, card)
     phase_dryrun(card)

@@ -305,6 +305,8 @@ register_scheme("global", GlobalScheme)
 register_scheme("naive", NaiveScheme)
 register_scheme("local", LocalScheme)
 
+GLOBAL = GlobalScheme()  # the default instance most call sites share
+
 
 def resolve_scheme(name, params: Optional[dict | tuple] = None) -> EstimatorScheme:
     """Scheme instance from a registry name and params (or pass one through)."""

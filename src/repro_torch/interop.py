@@ -74,16 +74,21 @@ def tenant_snapshot(snap: dict, tenant: int) -> dict:
     return out
 
 
-def state_sha256(snap: dict) -> str:
-    """sha256 over the estimator state of a snapshot: f1, chi, f2 (int32),
-    has_f3 (one byte each) and m_seen (int64), little-endian, in that order.
-    Equal digests mean bit-identical state."""
-    s = _normalise(snap)
+def estimator_sha256(fields) -> str:
+    """sha256 over an estimator state's f1, chi, f2 (int32), has_f3 (one
+    byte each) and m_seen (int64), given in that order as arrays numpy can
+    read, little-endian. Equal digests mean bit-identical state."""
     h = hashlib.sha256()
-    for k, dt in (("f1", "<i4"), ("chi", "<i4"), ("f2", "<i4"),
-                  ("has_f3", "u1"), ("m_seen", "<i8")):
-        h.update(np.ascontiguousarray(s[k].astype(dt)).tobytes())
+    for a, dt in zip(fields, ("<i4", "<i4", "<i4", "u1", "<i8"), strict=True):
+        h.update(np.ascontiguousarray(np.asarray(a).astype(dt)).tobytes())
     return h.hexdigest()
+
+
+def state_sha256(snap: dict) -> str:
+    """``estimator_sha256`` of a snapshot's state (every tenant's, in
+    order)."""
+    s = _normalise(snap)
+    return estimator_sha256([s[k] for k in ("f1", "chi", "f2", "has_f3", "m_seen")])
 
 
 def estimate_sha256(est) -> str:
