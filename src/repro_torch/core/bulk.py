@@ -47,6 +47,7 @@ from repro_torch.primitives.search import (
     resolve_multisearch_backend,
 )
 from repro_torch.primitives.sort import pack2
+from repro_torch.spans import span
 
 Tensor = torch.Tensor
 IntLike = Union[int, Tensor]
@@ -80,7 +81,8 @@ def step1_level1(state: EstimatorState, W: Tensor, n_valid: IntLike, key: Tensor
     r = state.r
     m = _col(state.m_seen)
     total = m + _col(n_valid)
-    t = rng.randint64(key, torch.clamp(total, min=1), (r,), e0)
+    with span("core.draw"):
+        t = rng.randint64(key, torch.clamp(total, min=1), (r,), e0)
     replace = (t >= m) & (total > 0)
     last = (torch.clamp(_col(n_valid) - 1, min=0) if isinstance(n_valid, Tensor)
             else max(int(n_valid) - 1, 0))
@@ -111,7 +113,8 @@ def rank_queries(R: RankStructure, u: Tensor, v: Tensor, f1_bpos: Tensor,
     """rank(endpoint -> other) for both f1 endpoints (paper Observation 4.4)
     in one multisearch over ``R.key_desc``: a fresh f1 reads its own arc's
     offset in the segment, an old one (f1_bpos = -1) the segment width."""
-    lt, le = multisearch_bounds(R.key_desc, _q1_queries(R.s, u, v, f1_bpos), search)
+    with span("core.search"):
+        lt, le = multisearch_bounds(R.key_desc, _q1_queries(R.s, u, v, f1_bpos), search)
     r = u.shape[-1]
     hi_u, hi_v = lt[..., :r], lt[..., r:2 * r]
     lo_u, lo_v = lt[..., 2 * r:3 * r], lt[..., 3 * r:]
@@ -141,15 +144,18 @@ def step2_level2(f1, chi_minus, f2, has_f3, f1_bpos, R: RankStructure, key,
     chi_plus = ld + rd
     chi_new = chi_minus + chi_plus
 
-    k = rng.split(key)
     r = f1.shape[-2]
-    coin = rng.uniform(k[..., 0, :], (r,), e0)
+    with span("core.draw"):
+        k = rng.split(key)
+        coin = rng.uniform(k[..., 0, :], (r,), e0)
     take_new = have_f1 & (chi_plus > 0) & (coin < _p_new(chi_plus, chi_new))
 
-    phi = rng.randint32(k[..., 1, :], torch.clamp(chi_plus, min=1), (r,), e0)
+    with span("core.draw"):
+        phi = rng.randint32(k[..., 1, :], torch.clamp(chi_plus, min=1), (r,), e0)
     t_src = torch.where(phi < ld, u, v)
     t_rank = torch.where(phi < ld, phi, phi - ld)
-    lt, le = multisearch_bounds(R.key_rank, pack2(t_src, t_rank), search)
+    with span("core.search"):
+        lt, le = multisearch_bounds(R.key_rank, pack2(t_src, t_rank), search)
     found = le > lt
     j = torch.clamp(lt, max=R.key_rank.shape[-1] - 1).long()
     cand = _canon(_at(R.src, j), _at(R.dst, j))
@@ -174,7 +180,8 @@ def step3_closing(f1, f2, has_f3, f2_bpos, R: RankStructure, search: str = "auto
     wedge's two free endpoints, arriving after f2. On duplicate edges the
     last copy's position is read (the structure's sort is stable)."""
     have_wedge, q = _closing_query(f1, f2)
-    lt, le = multisearch_bounds(R.ekey, q, search)
+    with span("core.search"):
+        lt, le = multisearch_bounds(R.ekey, q, search)
     p3 = _at(R.epos, torch.clamp(le - 1, min=0).long())
     return has_f3 | (have_wedge & (le > lt) & (p3 > f2_bpos))
 
@@ -189,8 +196,9 @@ def bulk_update_all(state: EstimatorState, W: Tensor, n_valid: IntLike,
     bank's T batches at once). ``e0``: the module docstring's shards."""
     k = rng.split(key)
     f1, chi_m, f2, has_f3, f1_bpos = step1_level1(state, W, n_valid, k[..., 0, :], e0)
-    R = rank_all(W, n_valid,
-                 use_kernels=resolve_multisearch_backend(search, W.device) == "kernel")
+    with span("core.build"):
+        R = rank_all(W, n_valid,
+                     use_kernels=resolve_multisearch_backend(search, W.device) == "kernel")
     f2, chi, has_f3, f2_bpos = step2_level2(f1, chi_m, f2, has_f3, f1_bpos, R, k[..., 1, :],
                                             search, e0)
     has_f3 = step3_closing(f1, f2, has_f3, f2_bpos, R, search)
@@ -251,7 +259,8 @@ def _step2_fused(f1, chi_minus, f2, has_f3, f1_bpos, R: RankStructure,
     comparison at the lt point)."""
     u, v = f1[..., 0], f1[..., 1]
     have_f1 = u >= 0
-    lt4 = multisearch_lt(R.key_desc, _q1_queries(R.s, u, v, f1_bpos), "eager")
+    with span("core.search"):
+        lt4 = multisearch_lt(R.key_desc, _q1_queries(R.s, u, v, f1_bpos), "eager")
     r = u.shape[-1]
     zero = torch.zeros_like(lt4[..., :r])
     ld = torch.where(have_f1, lt4[..., :r] - lt4[..., 2 * r:3 * r], zero)
@@ -265,7 +274,8 @@ def _step2_fused(f1, chi_minus, f2, has_f3, f1_bpos, R: RankStructure,
     t_rank = torch.where(phi < ld, phi, phi - ld)
     qk = pack2(t_src, t_rank)
     n2 = R.key_rank.shape[-1]
-    lt = multisearch_lt(R.key_rank, qk, "eager")
+    with span("core.search"):
+        lt = multisearch_lt(R.key_rank, qk, "eager")
     j = torch.clamp(lt, max=n2 - 1).long()
     found = (lt < n2) & (_at(R.key_rank, j) == qk)
     take_new = take_new & found
@@ -300,8 +310,9 @@ def chunk_draws(state: EstimatorState, Ws: Tensor, n_valids: Tensor, key: Tensor
     dev = Ws.device
     n_valids = n_valids.to(device=dev, dtype=torch.int32)
     steps = chunk_steps(step0, Ws.shape[-3], dev)
-    m_before, totals, t, coin, phi_hi, phi_lo = _chunk_randomness(state, n_valids, key, steps,
-                                                                  e0)
+    with span("core.draw"):
+        m_before, totals, t, coin, phi_hi, phi_lo = _chunk_randomness(state, n_valids, key,
+                                                                      steps, e0)
 
     # the reservoir decisions are deterministic in (t, m_seen trajectory),
     # and m_seen's trajectory is a cumsum of the batch sizes
@@ -335,12 +346,16 @@ def _bulk_update_chunk_fused(state: EstimatorState, Ws: Tensor, n_valids: Tensor
     from repro_torch.kernels.fused_ingest import fused_ingest, fused_ingest_hoisted
 
     nv = n_valids.to(device=Ws.device, dtype=torch.int32)
-    structs = chunk_structures(Ws, nv, use_kernels=use_kernels)
+    with span("core.build"):
+        structs = chunk_structures(Ws, nv, use_kernels=use_kernels)
     st = (state.f1, state.chi, state.f2, state.has_f3)
     if use_kernels:
-        out = fused_ingest(*st, *structs, Ws, nv, state.m_seen, key, step0, e0)
+        with span("core.fused_ingest"):
+            out = fused_ingest(*st, *structs, Ws, nv, state.m_seen, key, step0, e0)
     else:
-        out = fused_ingest_hoisted(*st, *structs, *chunk_draws(state, Ws, nv, key, step0, e0))
+        draws = chunk_draws(state, Ws, nv, key, step0, e0)
+        with span("core.fused_ingest"):
+            out = fused_ingest_hoisted(*st, *structs, *draws)
     return EstimatorState(*out, state.m_seen + torch.sum(nv.to(torch.int64), dim=-1))
 
 

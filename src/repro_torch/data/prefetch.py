@@ -35,6 +35,8 @@ from typing import Callable, Iterable, Iterator, Optional
 
 import numpy as np
 
+from repro_torch.spans import span
+
 _DONE = object()  # the end marker, distinct from any item (even None)
 
 
@@ -243,15 +245,16 @@ class TenantQueues:
 def stack_batches(buf: list, batch_size: Optional[int] = None) -> tuple[np.ndarray, np.ndarray]:
     """Stack K ``(W, n_valid)`` batches into ``(Ws (K, s, 2), n_valids (K,))``;
     ``batch_size`` zero-pads short batches to s first."""
-    Ws, nvs = [], []
-    for W, nv in buf:
-        W = np.asarray(W, dtype=np.int32)
-        if batch_size is not None and W.shape[-2] < batch_size:
-            pad = [(0, 0)] * (W.ndim - 2) + [(0, batch_size - W.shape[-2]), (0, 0)]
-            W = np.pad(W, pad)
-        Ws.append(W)
-        nvs.append(np.asarray(nv, dtype=np.int32))
-    return np.stack(Ws, axis=-3), np.stack(nvs, axis=-1)
+    with span("service.stack"):
+        Ws, nvs = [], []
+        for W, nv in buf:
+            W = np.asarray(W, dtype=np.int32)
+            if batch_size is not None and W.shape[-2] < batch_size:
+                pad = [(0, 0)] * (W.ndim - 2) + [(0, batch_size - W.shape[-2]), (0, 0)]
+                W = np.pad(W, pad)
+            Ws.append(W)
+            nvs.append(np.asarray(nv, dtype=np.int32))
+        return np.stack(Ws, axis=-3), np.stack(nvs, axis=-1)
 
 
 def superbatches(batch_iter: Iterable, k: int, batch_size: Optional[int] = None) -> Iterator:

@@ -95,6 +95,7 @@ from repro_torch.engine.backends import BackendPlan, select_backend
 from repro_torch.engine.faults import FaultInjected, check_fault
 from repro_torch.primitives.ingest import resolve_ingest_backend
 from repro_torch.primitives.search import resolve_multisearch_backend
+from repro_torch.spans import span
 
 _STATE_FIELDS = EstimatorState._fields
 
@@ -394,14 +395,15 @@ class TriangleCountEngine:
         """Copy a host array (a broadcast view too) to ``device`` (the
         engine's by default) through a pinned buffer without blocking the
         host (a plain copy on the CPU)."""
-        arr = np.asarray(arr)
-        device = self.device if device is None else torch.device(device)
-        if device.type == "cpu":
-            return torch.from_numpy(np.array(arr, order="C"))
-        dtype = torch.from_numpy(np.empty(0, arr.dtype)).dtype
-        pinned = torch.empty(arr.shape, dtype=dtype, pin_memory=True)
-        np.copyto(pinned.numpy(), arr)
-        return pinned.to(device, non_blocking=True)
+        with span("engine.upload"):
+            arr = np.asarray(arr)
+            device = self.device if device is None else torch.device(device)
+            if device.type == "cpu":
+                return torch.from_numpy(np.array(arr, order="C"))
+            dtype = torch.from_numpy(np.empty(0, arr.dtype)).dtype
+            pinned = torch.empty(arr.shape, dtype=dtype, pin_memory=True)
+            np.copyto(pinned.numpy(), arr)
+            return pinned.to(device, non_blocking=True)
 
     def _put(self, arr: np.ndarray, sharding) -> list:
         """A host array's per-shard blocks through a plan's input layout,
@@ -785,8 +787,11 @@ class TriangleCountEngine:
                 out = None
         if out is None:
             bank = self._state if self.plan.bank_sharding is None else self._bank(self.device)
-            est = self.scheme.estimate(bank, self.config.groups, backend=self._ingest_backend)
-            out = est.to(torch.float64).cpu().numpy()
+            with span("query.compute"):
+                est = self.scheme.estimate(bank, self.config.groups,
+                                           backend=self._ingest_backend)
+            with span("query.to_host"):
+                out = est.to(torch.float64).cpu().numpy()
         self.diag.queries_answered += 1
         if not gather:
             self._est_cache = {self._step: out}
@@ -799,7 +804,10 @@ class TriangleCountEngine:
 
         def call() -> np.ndarray:
             check_fault("engine.estimate")  # the device dispatch's fault site
-            return self._estimate_device(self._state).to(torch.float64).cpu().numpy()
+            with span("query.compute"):
+                est = self._estimate_device(self._state)
+            with span("query.to_host"):
+                return est.to(torch.float64).cpu().numpy()
 
         if timeout_s is None:
             return call()

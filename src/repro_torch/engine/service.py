@@ -69,6 +69,7 @@ from typing import Callable, Iterable, Optional
 
 import numpy as np
 
+from repro_torch import spans
 from repro_torch.data.prefetch import PrefetchQueue, TenantQueues, superbatches
 from repro_torch.engine.engine import SnapshotMismatch, TriangleCountEngine
 from repro_torch.engine.faults import (
@@ -242,7 +243,8 @@ class _Loop:
         seen = 0
         while True:
             try:
-                item, stale = self.pf.get()
+                with spans.span("service.prefetch_wait"):
+                    item, stale = self.pf.get()
             except StopIteration:
                 return
             self.rep.stale_batches += int(stale)
@@ -337,35 +339,38 @@ def run_stream(
 
     def admitted():
         for pos, (W, nv) in loop.items():
-            if res.validate and loop.quarantine(
-                    validate_batch(W, nv, max_vertex=res.max_vertex), pos, (W, nv)):
-                continue
+            if res.validate:
+                with spans.span("service.validate"):
+                    reason = validate_batch(W, nv, max_vertex=res.max_vertex)
+                if loop.quarantine(reason, pos, (W, nv)):
+                    continue
             pend.append(pos)
             yield W, nv
 
-    if K <= 1:
-        for W, nv in admitted():
-            loop.call(engine.ingest, W, nv)
-            after_ingest(1, int(np.asarray(nv).max()))
-    else:
-        # dispatch the staged chunk, then stage the next one: its upload
-        # overlaps the dispatched chunk's compute
-        pending = None
-        for kind, payload in superbatches(admitted(), K, engine.config.batch_size):
+    with spans.stream(loop.position):
+        if K <= 1:
+            for W, nv in admitted():
+                loop.call(engine.ingest, W, nv)
+                after_ingest(1, int(np.asarray(nv).max()))
+        else:
+            # dispatch the staged chunk, then stage the next one: its upload
+            # overlaps the dispatched chunk's compute
+            pending = None
+            for kind, payload in superbatches(admitted(), K, engine.config.batch_size):
+                if pending is not None:
+                    loop.call(engine.ingest_chunk, pending)
+                    after_ingest(K, pending.edges)
+                    pending = None
+                if kind == "chunk":
+                    pending = loop.call(engine.stage_chunk, *payload)
+                else:  # the ragged tail, batch by batch
+                    W, nv = payload
+                    loop.call(engine.ingest, W, nv)
+                    after_ingest(1, int(np.asarray(nv).max()))
             if pending is not None:
                 loop.call(engine.ingest_chunk, pending)
                 after_ingest(K, pending.edges)
-                pending = None
-            if kind == "chunk":
-                pending = loop.call(engine.stage_chunk, *payload)
-            else:  # the ragged tail, batch by batch
-                W, nv = payload
-                loop.call(engine.ingest, W, nv)
-                after_ingest(1, int(np.asarray(nv).max()))
-        if pending is not None:
-            loop.call(engine.ingest_chunk, pending)
-            after_ingest(K, pending.edges)
-    return loop.finish()
+        return loop.finish()
 
 
 def run_signed_stream(
@@ -395,9 +400,11 @@ def run_signed_stream(
                  report_every=report_every, on_report=on_report,
                  prefetch_depth=prefetch_depth, deadline_s=deadline_s, cursor="dyn_step")
     for pos, item in loop.items():
-        if res.validate and loop.quarantine(
-                validate_signed_item(item, max_vertex=res.max_vertex), pos, item):
-            continue
+        if res.validate:
+            with spans.span("service.validate"):
+                reason = validate_signed_item(item, max_vertex=res.max_vertex)
+            if loop.quarantine(reason, pos, item):
+                continue
         if len(item) > 2 and int(item[2]) < 0:
             loop.call(engine.delete, item[0], item[1])
         else:
