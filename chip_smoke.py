@@ -74,8 +74,9 @@ Phases, each of which raises on failure (nothing is caught):
   full       the paper's bulk_s1m_r2m shape (r = 2^21 estimators, batch
              s = 2^20, chunk K = 4) through TriangleCountEngine + run_stream on
              a 9,088,608-edge planted-triangle stream: two chunks, then a
-             ragged batch of 700,000 edges on the per-batch path. It checks
-             that every kernel was launched, that the state is bit-identical
+             ragged batch of 700,000 edges as a one-batch chunk. It checks
+             that every kernel of the chunk route was launched and
+             multisearch_counts never was, that the state is bit-identical
              to the plain path (scan ingest, torch.searchsorted), that a
              snapshot after chunk 1 restored into a fresh engine finishes
              with the same state, that the second chunk on the kernel route
@@ -240,9 +241,11 @@ Phases, each of which raises on failure (nothing is caught):
              batches of 8,192: half the stream checkpointed every 2 batches, a
              fresh engine that resumes and finishes, an uninterrupted run whose
              estimates must equal the resumed one's) prints the golden lines of
-             examples/streaming_triangle_count.py but for the seconds; in both,
-             multisearch_counts, the tile sort and segscan each launched
-             (counted from 0 around the run); python -m
+             examples/streaming_triangle_count.py but for the seconds; in the
+             first multisearch_counts, the tile sort and segscan each
+             launched, in the second (lone batches as one-batch chunks)
+             fused_ingest, the tile sort and both scans (counted from 0
+             around the run); python -m
              repro_torch.launch.train_lm --steps 20 --ckpt-every 10 on a fresh
              --ckpt-dir (smollm-135m FULL, bfloat16, the step count cut) prints
              examples/train_lm.py's arch= line and a first logged loss within
@@ -1221,10 +1224,13 @@ def phase_full(dev) -> dict:
     # the same stream again in a fresh engine: a first run that is slow on
     # the host shows apart from a later one
     rep_again = run_stream(engine("kernel", "kernel"), batches(edges, s))
-    missing = [k for k in ("fused_ingest", "bitonic_sort_tiles", "segscan",
-                           "segmented_max_scan", "multisearch_counts") if launches[k] == 0]
+    missing = [k for k in CHUNK_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"full: kernels never launched on the main path: {missing}")
+    # the ragged tail goes as a one-batch chunk through fused_ingest: no search
+    if launches["multisearch_counts"]:
+        raise AssertionError(f"full: the tail searched {launches['multisearch_counts']} times "
+                             "(want 0: fused_ingest searches in registers)")
     digest = state_sha256(eng.snapshot())
     est = float(eng.estimate()[0])
     rel = abs(est - tau) / tau
@@ -1471,12 +1477,12 @@ def phase_dynamic_full(dev, full: dict) -> dict:
     launches, cuda_launches = dict(LAUNCHES), dict(CUDA_LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
     n_del = -(-(head - window) // s) + -(-n_tail // s)  # expiry batches of at most s
-    # the tail's per-batch update searches 3 times (Q1, Q2, step 3), each
-    # deletion batch once
-    if eng.diag.window_expired != m - window or launches["multisearch_counts"] != 3 + n_del:
+    # each deletion batch searches once; the tail, a one-batch chunk through
+    # fused_ingest, not at all
+    if eng.diag.window_expired != m - window or launches["multisearch_counts"] != n_del:
         raise AssertionError(f"dynamic_full: expired {eng.diag.window_expired} edges "
                              f"(want {m - window}), multisearch_counts launched "
-                             f"{launches['multisearch_counts']} times (want {3 + n_del})")
+                             f"{launches['multisearch_counts']} times (want {n_del})")
     snap = eng.snapshot()
     digest, ring = state_sha256(snap), window_sha256(snap)
     est = float(eng.estimate()[0])
@@ -1528,9 +1534,10 @@ def phase_dynamic_full(dev, full: dict) -> dict:
     burst.sync()
     burst_s = time.perf_counter() - t0
     burst_launches = dict(LAUNCHES)
-    if burst_launches["multisearch_counts"] != 3 + 1 or burst.diag.edges_deleted != s:
+    if burst_launches["multisearch_counts"] != 1 or burst.diag.edges_deleted != s:
         raise AssertionError(f"dynamic_full burst: multisearch_counts launched "
-                             f"{burst_launches['multisearch_counts']} times (want 4), "
+                             f"{burst_launches['multisearch_counts']} times (want 1, the "
+                             "deletion batch's), "
                              f"{burst.diag.edges_deleted} edges deleted")
     digest_b = state_sha256(burst.snapshot())
     est_b = float(burst.estimate()[0])
@@ -1648,7 +1655,7 @@ def phase_chaos_full(dev, card: str, full: dict, dynamic: dict) -> None:
             r=FULL["r"], batch_size=s, chunk_size=K, groups=FULL["groups"],
             seeds=(FULL["seed"],), device=dev.type, ingest="kernel", multisearch="kernel"))
 
-    def drive(name, spec, fn, kernels=CHUNK_KERNELS + BATCH_KERNELS, killed=False):
+    def drive(name, spec, fn, kernels=CHUNK_KERNELS, killed=False):
         """``fn()`` under the plan ``spec`` with every count zeroed just
         before and read just after, every kernel of the path launched, and
         the threads the loop started joined (bounded) while the plan is
@@ -1763,12 +1770,13 @@ def phase_chaos_full(dev, card: str, full: dict, dynamic: dict) -> None:
             signed, iter(items), resilience=ResilienceConfig(retry=retry)),
         kernels=BATCH_KERNELS)
     same("d", signed, dynamic["burst_digest"])
-    n_ins = sum(1 for it in items if it[2] > 0)
-    if launches_d["multisearch_counts"] != 3 * n_ins + 1 or signed.diag.edges_deleted != s \
+    # the inserts go through fused_ingest, one batch a chunk: only the
+    # deletion batch searches
+    if launches_d["multisearch_counts"] != 1 or signed.diag.edges_deleted != s \
             or (rep_d.retries, rep_d.duplicate_batches) != (1, 1):
         raise AssertionError(f"chaos_full d: multisearch_counts launched "
-                             f"{launches_d['multisearch_counts']} times (want {3 * n_ins + 1}, "
-                             f"the deletion batch's one among them), retries {rep_d.retries}, "
+                             f"{launches_d['multisearch_counts']} times (want 1, "
+                             f"the deletion batch's), retries {rep_d.retries}, "
                              f"duplicates {rep_d.duplicate_batches}")
 
     def timing(rep):
@@ -1889,8 +1897,7 @@ def phase_tenants_full(dev, full: dict, local: dict, dynamic: dict) -> dict:
     # (a) global over four relabeled streams
     streams = [relabeled(edges, t) for t in range(T)]
     bank = engine(T, seeds)
-    rep, launches, peak = run("global", ("fused_ingest", "bitonic_sort_tiles", "segscan",
-                                         "segmented_max_scan", "multisearch_counts"),
+    rep, launches, peak = run("global", CHUNK_KERNELS,
                               lambda: run_stream(bank, bank_batches(streams)))
     snap = bank.snapshot()
     digests = [state_sha256(tenant_snapshot(snap, t)) for t in range(T)]
@@ -1983,9 +1990,10 @@ def phase_tenants_full(dev, full: dict, local: dict, dynamic: dict) -> dict:
     _, launches_b, peak_b = run("burst", ("multisearch_counts",), lambda: (
         burst.ingest_signed_stream(iter(items)), burst.sync()))
     burst_s = time.perf_counter() - t0
-    if launches_b["multisearch_counts"] != 3 + 1 or burst.diag.edges_deleted != s:
+    if launches_b["multisearch_counts"] != 1 or burst.diag.edges_deleted != s:
         raise AssertionError(f"tenants_full burst: multisearch_counts launched "
-                             f"{launches_b['multisearch_counts']} times (want 4), "
+                             f"{launches_b['multisearch_counts']} times (want 1, the "
+                             "deletion batch's), "
                              f"{burst.diag.edges_deleted} edges deleted")
     if state_sha256(tenant_snapshot(burst.snapshot(), 0)) != dynamic["burst_digest"]:
         raise AssertionError("tenants_full burst: tenant 0 differs from phase dynamic_full")
@@ -3745,20 +3753,20 @@ def phase_examples(dev, card: str) -> dict:
     gold = json.loads((ROOT / "src/repro_torch/golden/examples_small.json").read_text())
     out = {"card": card}
 
-    def counted(name: str, fn) -> dict:
+    def counted(name: str, kernels: tuple, fn) -> dict:
         lines = []
         reset_launches()
         t0 = time.perf_counter()
         res = fn(lines.append)
         torch.cuda.synchronize(dev)
         host_s = time.perf_counter() - t0
-        launches = {k: LAUNCHES[k] for k in BATCH_KERNELS}
+        launches = {k: LAUNCHES[k] for k in kernels}
         if not all(launches.values()):
             raise AssertionError(f"examples {name}: kernels not launched: {launches}")
         out[name] = {"host_s": host_s, "launches": launches, "lines": lines}
         return res
 
-    q = counted("quickstart", lambda echo: quickstart.run(
+    q = counted("quickstart", BATCH_KERNELS, lambda echo: quickstart.run(
         **gold["quickstart"]["args"], device=dev, echo=echo))
     if out["quickstart"]["lines"] != [gold["quickstart"]["line"]]:
         raise AssertionError(f"examples quickstart: {out['quickstart']['lines']} != "
@@ -3768,7 +3776,8 @@ def phase_examples(dev, card: str) -> dict:
     args = dict(gold["streaming"]["args"], seeds=tuple(gold["streaming"]["args"]["seeds"]))
     ckpt_dir = tempfile.mkdtemp(prefix="examples_stream_")
     try:
-        st = counted("streaming", lambda echo: streaming_triangle_count.run(
+        # the engine's lone batches go as one-batch chunks through fused_ingest
+        st = counted("streaming", CHUNK_KERNELS, lambda echo: streaming_triangle_count.run(
             **args, ckpt_dir=ckpt_dir, device=dev, echo=echo))
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)

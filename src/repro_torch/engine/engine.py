@@ -3,7 +3,10 @@
 A long-lived streaming triangle counter for a bank of ``n_tenants`` edge
 streams (one by default):
 
-  * ``ingest(W)`` folds one batch into the estimators;
+  * ``ingest(W)`` folds one batch into the estimators; on the ``single``
+    plan with the kernel ingest backend (the card's default) it runs the
+    batch as a one-batch chunk through the scheme's ``chunk_update``, bit
+    for bit the per-batch update (``batches_as_chunk`` counts those);
   * ``stage_chunk`` / ``ingest_chunk`` fold K batches in one update, with
     the next chunk's upload staged while the current one computes;
   * ``estimate()`` answers the scheme's query, cached per ``step``, and
@@ -299,6 +302,15 @@ class TriangleCountEngine:
         self._update = self.plan.build(config, mesh, self.scheme)
         self._update_chunk = (self.plan.build_chunk(config, mesh, self.scheme)
                               if config.chunk_size > 1 else None)
+        # a lone batch as a one-batch chunk: on the kernel ingest backend the
+        # single plan's chunk update draws in registers (fused_ingest) where
+        # the per-batch update issues ~1,850 int64 operations. K = 1 is
+        # bulk_update_all under fold_in(key, step), bit for bit; the other
+        # plans keep the per-batch route until that is shown for them
+        self._update_one = (self.plan.build_chunk(config, mesh, self.scheme)
+                            if self._ingest_backend == "kernel" and self.plan.name == "single"
+                            else None)
+        self.batches_as_chunk = 0  # batches ingest() sent through _update_one
         self._delete = None  # the plan's deletion update, built on first use
         self._step = 0  # batches ingested so far: the RNG fold_in counter
         self._dyn_step = 0  # signed batches applied (inserts and deletions)
@@ -457,15 +469,21 @@ class TriangleCountEngine:
         is pre-padded."""
         check_fault("engine.ingest")  # before any conversion or state change
         Wb, nv = self._bank_batch(W, n_valid)
-        keys = rng.fold_in(self._root_key, self._step)
-        if not self.plan.banked:  # the single-tenant sharded plans
-            out = self._update(self._state, self._put(Wb[0], self.plan.batch_w_sharding),
-                               int(nv[0]), keys[0])
-        elif self.plan.batch_w_sharding is not None:
-            out = self._update(self._state, self._put(Wb, self.plan.batch_w_sharding),
-                               self._counts(nv), keys)
+        if self._update_one is not None:
+            out = self._update_one(self._state, self._upload(Wb)[:, None],
+                                   self._upload(nv.astype(np.int32)[:, None]),
+                                   self._root_key, self._step)
+            self.batches_as_chunk += 1
         else:
-            out = self._update(self._state, self._upload(Wb), self._counts(nv), keys)
+            keys = rng.fold_in(self._root_key, self._step)
+            if not self.plan.banked:  # the single-tenant sharded plans
+                out = self._update(self._state, self._put(Wb[0], self.plan.batch_w_sharding),
+                                   int(nv[0]), keys[0])
+            elif self.plan.batch_w_sharding is not None:
+                out = self._update(self._state, self._put(Wb, self.plan.batch_w_sharding),
+                                   self._counts(nv), keys)
+            else:
+                out = self._update(self._state, self._upload(Wb), self._counts(nv), keys)
         if self.plan.reports_overflow:
             # kept on the device and drained every few batches, so the host
             # never waits on the device per batch; an escalation lands a few

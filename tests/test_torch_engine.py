@@ -4,14 +4,19 @@ directions and continue bit-identically, the same generated streams and
 superbatches, chunked ingest equal to per-batch ingest, and the package's
 import hygiene (no jax, no repro)."""
 import ast
+import functools
 import pathlib
 
 import numpy as np
 import pytest
 
 import repro  # noqa: F401  -- enables x64
+import jax
+import jax.numpy as jnp
 import torch
 
+from repro.core import bulk as jax_bulk
+from repro.core.state import init_state as jax_init_state
 from repro.data import graph_stream as jgs
 from repro.data import prefetch as jpf
 from repro.engine import EngineConfig as JaxConfig
@@ -95,6 +100,80 @@ def test_chunked_run_stream_equals_per_batch_and_restore():
     resumed = _port(K=4, ingest="kernel")
     resumed.restore(per_batch.snapshot())
     _assert_snap_equal(resumed.snapshot(), chunked.snapshot())
+
+
+# the lone-batch route: on the kernel ingest backend the single plan ingests a
+# lone batch as a one-batch chunk (on CPU tensors fused_ingest's plain version)
+LONE_R, LONE_S, LONE_SEEDS = 256, 32, (5, 6, 7)
+LONE_CASES = {  # name -> (batch after which m_seen jumps by 2^32, per-batch (T,) counts)
+    "full_ragged_empty": (None, ((32, 19, 0), (19, 0, 32), (0, 32, 19), (32, 32, 32))),
+    "fresh_empty_first": (None, ((0, 0, 0), (32, 7, 0), (5, 32, 32))),
+    "past_2^32": (0, ((32, 32, 32), (32, 19, 0), (19, 0, 32))),
+}
+_jax_bank_update = jax.jit(jax.vmap(jax_bulk.bulk_update_all))
+
+
+def _lone_batch(b):
+    """Batch b of each of three tenants, (3, s, 2), real edges past every count."""
+    E = _edges(4).astype(np.int32)
+    return np.stack([E[(3 * b + t) * LONE_S:(3 * b + t + 1) * LONE_S] for t in range(3)])
+
+
+@functools.lru_cache(maxsize=None)
+def _lone_reference(case):
+    """The JAX scan of bulk_update_all over a bank of three tenants: each
+    batch's state as numpy arrays (before that batch's m_seen jump)."""
+    jump, counts = LONE_CASES[case]
+    st = jax.tree.map(lambda x: jnp.stack([x] * 3), jax_init_state(LONE_R))
+    roots = jnp.stack([jax.random.PRNGKey(seed) for seed in LONE_SEEDS])
+    out = []
+    for b, nv in enumerate(counts):
+        keys = jax.vmap(jax.random.fold_in, in_axes=(0, None))(roots, b)
+        st = _jax_bank_update(st, jnp.asarray(_lone_batch(b)), jnp.asarray(nv, jnp.int32), keys)
+        out.append(tuple(np.asarray(x) for x in st))
+        if b == jump:
+            st = st._replace(m_seen=st.m_seen + 2**32)
+    return out
+
+
+def _run_lone(case, T, K=1, **kw):
+    """Ingest the case batch by batch into a fresh engine of T tenants,
+    holding the state to the reference's tenants [0, T) after every batch."""
+    jump, counts = LONE_CASES[case]
+    eng = TriangleCountEngine(EngineConfig(r=LONE_R, batch_size=LONE_S, n_tenants=T,
+                                           chunk_size=K, seeds=LONE_SEEDS[:T], device="cpu",
+                                           **kw))
+    for b, (nv, want) in enumerate(zip(counts, _lone_reference(case), strict=True)):
+        eng.ingest(_lone_batch(b)[:T], np.array(nv[:T]))
+        for f, got, ref in zip(STATE, eng.state, want):
+            np.testing.assert_array_equal(got.numpy(), ref[:T], err_msg=f"{f} batch {b}")
+        if b == jump:
+            eng._state = eng._state._replace(m_seen=eng._state.m_seen + 2**32)
+    assert eng.step == eng.diag.batches_ingested == len(counts)
+    return eng
+
+
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("T", [1, 3])
+@pytest.mark.parametrize("case", sorted(LONE_CASES))
+def test_lone_batch_as_chunk_matches_reference(case, T, K):
+    """Full, ragged and empty batches, a fresh state whose first batch is
+    empty and a stream length past 2^32, one tenant and a bank with
+    per-tenant counts, whatever the chunk size: bit for bit the reference's
+    per-batch update, every batch through the one-batch chunk route."""
+    eng = _run_lone(case, T, K, ingest="kernel")
+    assert eng.batches_as_chunk == len(LONE_CASES[case][1])
+
+
+@pytest.mark.parametrize("scheme", ["global", "local"])
+@pytest.mark.parametrize("ingest", ["fused", "scan", "kernel"])
+def test_lone_batch_route_by_backend(ingest, scheme):
+    """The CPU backends keep the per-batch route (the counter stays 0), for
+    the local scheme too; on the kernel backend the local scheme's base
+    chunk update gives the per-batch state as well."""
+    kw = {"scheme_params": {"n_vertices": 900, "n_pools": 4}} if scheme == "local" else {}
+    eng = _run_lone("full_ragged_empty", 3, ingest=ingest, scheme=scheme, **kw)
+    assert eng.batches_as_chunk == (4 if ingest == "kernel" else 0)
 
 
 def test_estimate_cache_and_reports():
